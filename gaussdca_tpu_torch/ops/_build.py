@@ -1,0 +1,90 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
+so ``nvcc`` builds it in seconds. The shared library lands in
+``gaussdca_tpu_torch/_build/`` (git-ignored), named by a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import time: the first CUDA call
+of a kernel's wrapper triggers the build. There is no fallback: a missing
+``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# sm_90a: Hopper with its architecture-specific features (wgmma,
+# setmaxnreg) enabled; -Xptxas=-v records registers, shared memory and
+# spills of every kernel in the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else
+    the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of gaussdca_tpu_torch are built from source on first use")
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
+        src = fh.read()
+    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{key[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library already exists;
+    returns the library path. The compiler's output (with the
+    ``-Xptxas=-v`` resource report) is kept beside it as ``.log``."""
+    out = library_path(name)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    # build to a private name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        with open(out[:-3] + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    return ctypes.CDLL(build(name))

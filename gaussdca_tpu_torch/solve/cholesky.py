@@ -1,0 +1,36 @@
+"""SPD inverse of the covariance via Cholesky.
+
+The reference's ``mJ = inv(cholesky(C))`` (src/GaussDCA.jl:34):
+``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse`` (LAPACK on the
+CPU, cuSOLVER on the card), then symmetrized. In f32 one Newton step
+``X <- X + X (I - C X)`` follows at full f32 (the pipeline runs with TF32
+off), the f32 default of ``gaussdca_tpu.solve.cholesky.spd_inverse``
+(``refine_iters=1``): it recovers most of what the factorization loses
+through cond(C). The JAX package's doubling triangular inverse and slab
+SYRK exist because the TPU's TRSM serializes its panel steps; they are not
+part of this port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NOT_POSITIVE_DEFINITE = (
+    "non-finite contact scores: the covariance matrix is not "
+    "positive definite (pseudocount too small for this "
+    "alignment depth?) — the reference fails here with "
+    "PosDefException from inv(cholesky(C))")
+
+
+def spd_inverse(C: torch.Tensor) -> torch.Tensor:
+    """Inverse of a symmetric positive-definite matrix; raises
+    ArithmeticError when the Cholesky factorization fails."""
+    L, info = torch.linalg.cholesky_ex(C)
+    if int(info) != 0:
+        raise ArithmeticError(NOT_POSITIVE_DEFINITE)
+    X = torch.cholesky_inverse(L)
+    if C.dtype == torch.float32:
+        R = -(C @ X)
+        R.diagonal().add_(1.0)
+        X = X + X @ R
+    return (X + X.T) * 0.5

@@ -1,0 +1,73 @@
+"""Sequence reweighting: auto-theta + similarity-threshold weights.
+
+The contract of ``gaussdca_tpu.stats.reweight.compute_weights_streaming``:
+
+- ``thresh = floor(theta * N)``; b is a neighbour of a iff
+  ``hamming(a, b) = N - matches(a, b) < thresh`` (strict);
+- ``W[a] = 1 / (1 + #{b != a : neighbour})``, ``Meff = sum(W)``; the
+  self-match is dropped by subtracting ``(thresh > 0)`` and the count is
+  clamped at 0 (token-0 rows match nothing, not even themselves);
+- auto-theta ``theta = min(0.5, 0.1216 / meanfracid)`` from the closed
+  form ``sum_ab matches(a, b) = sum_k sum_c n_kc^2`` over per-column state
+  histograms, so the O(M^2 N) distance pass runs once in either theta
+  mode.
+
+The distance pass is ``ops.distance.row_stats`` (the Hopper kernel on a
+CUDA tensor, its plain version on the CPU); only O(M) state is kept.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from gaussdca_tpu_torch.ops.distance import row_stats
+
+AUTO_THETA_COEFF = 0.38 * 0.32  # = 0.1216, the reference's auto-theta constant
+
+
+def total_matches_closed_form(Z: torch.Tensor, q: int) -> int:
+    """``sum_{a,b} matches(a, b)`` over all ordered row pairs (a = b
+    included), as an exact integer: ``sum_k sum_{c=1..q} n_kc^2`` with
+    ``n_kc = #{a : Z[a, k] = c}``, counted in int64 (token 0 excluded)."""
+    M, N = Z.shape
+    offsets = torch.arange(N, device=Z.device, dtype=torch.int64) * (q + 1)
+    idx = (Z.to(torch.int64) + offsets).reshape(-1)
+    n = torch.bincount(idx, minlength=N * (q + 1)).reshape(N, q + 1)[:, 1:]
+    return int((n * n).sum())
+
+
+def auto_theta_closed_form(Z: torch.Tensor, q: int) -> torch.Tensor:
+    """Resolved auto-theta ``min(0.5, 0.1216 / meanfracid)``, a host f64
+    scalar computed from the exact match total (NaN for a single row, as
+    in the reference package)."""
+    M, N = Z.shape
+    tm = torch.tensor(total_matches_closed_form(Z, q), dtype=torch.float64)
+    total = (tm - M * N) / 2.0
+    mfi = total / (N * (M * (M - 1) / 2.0))
+    return torch.minimum(torch.tensor(0.5, dtype=torch.float64),
+                         AUTO_THETA_COEFF / mfi)
+
+
+def compute_weights_streaming(
+    Z: torch.Tensor,
+    theta: Union[str, float],
+    q: int,
+    *,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(W [M], Meff, resolved theta) of token matrix Z [M, N] in O(M)
+    memory; theta is "auto" or a real in [0, 1]."""
+    M, N = Z.shape
+    if isinstance(theta, str):
+        if theta != "auto":
+            raise ValueError(f"invalid theta: {theta}")
+        theta = auto_theta_closed_form(Z, q)
+    th = torch.as_tensor(theta, dtype=torch.float64).to(dtype)
+    thresh = torch.floor(th * N)
+    _, below = row_stats(Z, thresh.to(torch.float32))
+    self_match = 1.0 if bool(thresh > 0) else 0.0
+    below = torch.clamp(below.to(dtype) - self_match, min=0.0)
+    W = 1.0 / (1.0 + below)
+    return W, W.sum(), th
