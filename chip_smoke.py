@@ -8,26 +8,42 @@ prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the TF32 flags as the pipeline sets them;
-2. build: both CUDA kernels from ``gaussdca_tpu_torch/csrc`` with nvcc;
+2. build: the three CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
+   nvcc, one compiler process each, all started together;
 3. kernels vs their plain PyTorch versions on the card: row statistics
-   (exact equality) at four shapes, per-pair DI at s = 8, 20, 30 on blocks
-   from real pipelines (f32 max abs <= 1e-5, f64 <= 1e-10), then the
-   median times of kernel and plain version at the main-path shapes;
-4. the four golden configs through ``gdca(..., device="cuda")``: f64 with
-   the CPU suite's gate (same pair set, rtol 1e-6), f32 with the same pair
-   set and max abs error <= 5e-4 (small) / 1e-3 (large);
-5. real size: frob with auto-theta at M=32768, N=384, q=21 and DI with
-   pc=0.2 at M=1024, N=1000, q=21, seeded synthetic families, end to end
-   and by stage (reweight, frequencies, solve, score, rank).
+   (kernel A, exact equality) at four shapes; rectangular row statistics
+   (kernel C, exact) at four shapes, including a row block with token-0
+   pad rows, and equal to kernel A on (Z, Z); per-pair DI (kernel B) at
+   s = 8, 20, 30 on blocks from real pipelines, on the whole coupling
+   matrix and on a row slab (f32 max abs <= 1e-5, f64 <= 1e-10), and at
+   the DI family's N=1000, s=20 on the whole matrix and on each shard's
+   row slab and anchored pairs of the 4-shard mesh (f32 <= 1e-5); then
+   the median times of kernel and plain version at the main-path shapes;
+4. single device: the four golden configs through ``gdca(...,
+   device="cuda")``, f64 with the CPU suite's gate (same pair set, rtol
+   1e-6), f32 with the same pair set and max abs error <= 5e-4 (small) /
+   1e-3 (large); then real size: frob with auto-theta at M=32768, N=384,
+   q=21 and DI with pc=0.2 at M=1024, N=1000, q=21, seeded synthetic
+   families, end to end and by stage (reweight, frequencies, solve,
+   score, rank);
+5. mesh: the same golden configs and real-size families through
+   ``gdca(..., mesh=...)`` on four shards of cuda:0 (a 2x2 mesh); the DI
+   family (Ns = 20000) takes the storage-sharded solve and the slab-local
+   DI. Each real-size mesh run is held against the single-device run of
+   the same call (same pair set, finite, max abs difference <= 1e-5 frob
+   / 2e-4 DI, top-100 overlap >= 95). With
+   more than one card, the families run once more, one shard per card.
 
-The launch counters are zeroed right before phase 4 and read after phase
-5: both kernels must have run on the main path. The line before the last
-is the kernel summary JSON; the last line is
-``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
+The launch counters are zeroed right before phase 4 and read after it
+(kernels A and B must have run), then zeroed before phase 5 and read
+after it (kernels C and B must have run). The line before the last is
+the kernel summary JSON; the last line is ``{"ok": true, "device":
+{...}}``. No CUDA device: exit 1, no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -80,7 +96,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def phase_device():
     import torch
-    from gaussdca_tpu_torch.api import full_f32_matmuls
+    from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -97,14 +113,35 @@ def phase_device():
             f"{torch.backends.cudnn.allow_tf32}")
 
 
+KERNELS = ("row_stats", "row_stats_rect", "di_pairs")
+
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+F32_FLOPS_S = 67e12
+# the popcount pipe: 16 a clock on each of 132 SMs at 1.98 GHz
+POPC_WORDS_S = 16 * 132 * 1.98e9
+
+
+def bound(nbytes: float, ops: float, rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def phase_build():
     from gaussdca_tpu_torch.ops import _build
 
-    for name in ("row_stats", "di_pairs"):
+    def build(name):
         t0 = time.perf_counter()
-        path = _build.build(name)
+        return _build.build(name), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build, KERNELS))
+    for name, (path, secs) in zip(KERNELS, built):
         _build.library(name)
-        log(f"[build] {name}: {time.perf_counter() - t0:.1f} s -> "
+        log(f"[build] {name}: {secs:.1f} s -> "
             f"{os.path.relpath(path, REPO)}")
         with open(path[:-3] + ".log") as fh:
             for line in fh:
@@ -127,24 +164,49 @@ def _covariance(tokens: np.ndarray, q: int, *, pc: float, theta, device):
     return spd_inverse(C), C
 
 
+def _rect_check(ZA, ZB, thresh, what):
+    """Kernel C equal to its plain version; returns the max abs error."""
+    import torch
+    from gaussdca_tpu_torch.ops import distance
+
+    got = distance.row_stats_rect(ZA, ZB, thresh)
+    want = distance.row_stats_rect_torch(ZA, ZB, thresh)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, name in zip(got, want, ("rowsum", "below")):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"row_stats_rect {name} differs from its plain version "
+                f"({what}, thresh={thresh}): {int((g != w).sum())} rows")
+        err = max(err, float((g - w).abs().max()))
+    return got, err
+
+
 def phase_kernels(dev):
     """Kernel vs plain version on the card; returns the kernel records
     (without launch counts) for the summary line."""
     import torch
     from gaussdca_tpu_torch.io import fasta
     from gaussdca_tpu_torch.ops import di_kernel, distance
+    from gaussdca_tpu_torch.parallel.sharded import _pair_assignment
     from gaussdca_tpu_torch.score.di import site_cholesky
     from gaussdca_tpu_torch.stats import reweight
 
-    # --- kernel A: exact equality
-    err_a = 0.0
-    for M, N, q, pad in [(1000, 53, 21, 24), (777, 250, 31, 0),
-                         (4096, 384, 21, 0), (32768, 384, 21, 0)]:
+    # --- kernel A: exact equality; kernel C on row blocks of the same Z
+    err_a = err_c = 0.0
+    for M, N, q, pad, rows in [(1000, 53, 21, 24, (100, 1024)),
+                               (777, 250, 31, 0, None),
+                               (4096, 384, 21, 0, (1024, 2048)),
+                               (32768, 384, 21, 0, (8192, 16384))]:
         Z = family_tokens(M, N, q, seed=M + N)
         M, N = Z.shape
         if pad:
             Z = np.concatenate([Z, np.zeros((pad, N), np.uint8)])
         Zt = torch.as_tensor(Z, device=dev)
+        # a row block of Z (here with the pad rows), or, at 777 x 250,
+        # an unrelated A with Ma = 333 (not a multiple of 64)
+        ZA = (Zt[rows[0]:rows[1]] if rows else torch.as_tensor(
+            family_tokens(333, N, q, seed=5), device=dev))
         th_auto = float(reweight.auto_theta_closed_form(Zt, q))
         for theta in (0.0, 0.2, th_auto):
             thresh = float(np.float32(np.floor(theta * N)))
@@ -160,10 +222,23 @@ def phase_kernels(dev):
                 err_a = max(err_a, float((g - w).abs().max()))
             if pad and (got[0][-pad:].any() or got[1][-pad:].any()):
                 raise AssertionError("token-0 rows must score 0")
+            rect, err = _rect_check(
+                ZA, Zt, thresh, f"Ma={ZA.shape[0]} Mb={Zt.shape[0]} N={N}")
+            err_c = max(err_c, err)
+            if pad and (rect[0][-pad:].any() or rect[1][-pad:].any()):
+                raise AssertionError("token-0 rows must score 0 (rect)")
+            # the B4 contract: full-grid rect on (Z, Z) is kernel A
+            full = distance.row_stats_full(Zt, thresh)
+            if not all(torch.equal(x, y) for x, y in zip(full, got)):
+                raise AssertionError(
+                    f"row_stats_rect(Z, Z) != row_stats(Z) at M={M} N={N}")
         log(f"[kernels] row_stats == plain at M={M} N={N} q={q} "
-            f"(+{pad} token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f}")
+            f"(+{pad} token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f}; "
+            f"row_stats_rect == plain at Ma={ZA.shape[0]} "
+            f"({'rows %d:%d' % rows if rows else 'unrelated A'}), "
+            "and == row_stats on (Z, Z)")
 
-    # --- kernel B: realistic blocks at s = 8, 20, 30
+    # --- kernel B: realistic blocks at s = 8, 20, 30, whole and slab
     large = fasta.remove_duplicate_sequences(fasta.read_fasta_alignment(
         os.path.join(GOLDEN_DIR, "large.fasta.gz"), 0.9))
     q9 = np.where(large.tokens == 21, 9, (large.tokens - 1) % 8 + 1)
@@ -179,53 +254,141 @@ def phase_kernels(dev):
         mJ, C = _covariance(tokens, q, pc=0.2, theta="auto", device=dev)
         Ls = site_cholesky(C, q).contiguous()
         N = Ls.shape[0]
+        s = q - 1
         iu, ju = (torch.as_tensor(x, device=dev)
                   for x in np.triu_indices(N, k=1))
+        # a row slab of sites [r0, r1) and every pair anchored there, with
+        # the other site below or above it, as the slab-local DI reads them
+        r0, r1 = N // 4, N // 2
+        si_np = np.repeat(np.arange(r0, r1), N)
+        sj_np = np.tile(np.arange(N), r1 - r0)
+        keep = si_np != sj_np
+        si, sj = (torch.as_tensor(x[keep], device=dev)
+                  for x in (si_np, sj_np))
         for dt in (torch.float64, torch.float32):
             a, b = mJ.to(dt), Ls.to(dt)
-            got = di_kernel.di_pairs(a, b, iu, ju)
-            want = di_kernel.di_pairs_torch(a, b, iu, ju)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not (np.isfinite(err) and err <= tol[dt]):
-                raise AssertionError(
-                    f"di_pairs differs from its plain version ({what}, "
-                    f"s={q - 1}, {dt}): max abs {err} > {tol[dt]}")
-            err_b[dt] = max(err_b[dt], err)
-            log(f"[kernels] di_pairs vs plain, {what}: s={q - 1} P={iu.numel()}"
-                f" {str(dt)[6:]} max abs {err:.3e} (max DI "
-                f"{float(want.max()):.4f})")
+            slab = a[r0 * s:r1 * s]
+            for name, args, kw in (
+                    ("whole", (a, b, iu, ju), {}),
+                    (f"slab {r0}:{r1}", (slab, b, si, sj), {"row0": r0})):
+                got = di_kernel.di_pairs(*args, **kw)
+                want = di_kernel.di_pairs_torch(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not (np.isfinite(err) and err <= tol[dt]):
+                    raise AssertionError(
+                        f"di_pairs differs from its plain version ({what},"
+                        f" {name}, s={s}, {dt}): max abs {err} > {tol[dt]}")
+                err_b[dt] = max(err_b[dt], err)
+                log(f"[kernels] di_pairs vs plain, {what}, {name}: s={s} "
+                    f"P={args[2].numel()} {str(dt)[6:]} max abs {err:.3e} "
+                    f"(max DI {float(want.max()):.4f})")
+            # the slab call reads the same values as the whole-matrix call
+            whole = di_kernel.di_pairs(a, b, si, sj)
+            if not torch.equal(whole, di_kernel.di_pairs(slab, b, si, sj,
+                                                         row0=r0)):
+                raise AssertionError("di_pairs on a slab != on the whole "
+                                     f"matrix ({what}, {dt})")
 
     # --- main-path shapes: times (f32 pipeline dtype)
     Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
-    thresh = float(np.floor(0.2 * Z.shape[1]))
+    M, N = Z.shape
+    thresh = float(np.floor(0.2 * N))
     ms_a = cuda_ms(lambda: distance.row_stats(Z, thresh), reps=5)
     plain_a = cuda_ms(lambda: distance.row_stats_torch(Z, thresh), reps=3)
-    log(f"[kernels] row_stats M={Z.shape[0]} N={Z.shape[1]} q=21: kernel "
-        f"{ms_a:.3f} ms, plain {plain_a:.3f} ms")
-    del Z
+    # kernel A: M^2 Np q int8 operations (the half grid of the JAX sym
+    # kernel's count); reads Z once, writes two [M] results
+    bound_a = bound(M * N + 8 * M, M * M * N * 21, INT8_OPS_S)
+    log(f"[kernels] row_stats M={M} N={N} q=21: kernel "
+        f"{ms_a:.3f} ms, plain {plain_a:.3f} ms; bound {bound_a[0]:.2f} ms"
+        f" ({bound_a[1]}), popcount-pipe bound "
+        f"{M * M / 2 * N / 4 / POPC_WORDS_S * 1e3:.2f} ms")
+    # the full-grid square kernel (row_stats_pallas' port) is kernel C
+    # on (Z, Z): twice kernel A's pairs
+    ms_full = cuda_ms(lambda: distance.row_stats_full(Z, thresh), reps=3)
+    bound_full = bound(M * N + 8 * M, 2 * M * M * N * 21, INT8_OPS_S)
+    log(f"[kernels] row_stats_full M={M} N={N} q=21: kernel "
+        f"{ms_full:.3f} ms; bound {bound_full[0]:.2f} ms "
+        f"({bound_full[1]}), popcount-pipe bound "
+        f"{M * M * N / 4 / POPC_WORDS_S * 1e3:.2f} ms")
+    # kernel C at one shard of the 4-shard main path: 8192 rows vs all
+    ZA = Z[8192:16384]
+    Ma = ZA.shape[0]
+    ms_c = cuda_ms(lambda: distance.row_stats_rect(ZA, Z, thresh), reps=5)
+    plain_c = cuda_ms(lambda: distance.row_stats_rect_torch(ZA, Z, thresh),
+                      reps=3)
+    bound_c = bound((Ma + M) * N + 8 * Ma, 2 * Ma * M * N * 21, INT8_OPS_S)
+    log(f"[kernels] row_stats_rect Ma={Ma} Mb={M} N={N} q=21: kernel "
+        f"{ms_c:.3f} ms, plain {plain_c:.3f} ms; bound {bound_c[0]:.2f} ms"
+        f" ({bound_c[1]}), popcount-pipe bound "
+        f"{Ma * M * N / 4 / POPC_WORDS_S * 1e3:.2f} ms")
+    del Z, ZA
     mJ, C = _covariance(family_tokens(1024, 1000, 21, seed=2), 21, pc=0.2,
                         theta=0.2, device=dev)
     Ls = site_cholesky(C, 21).contiguous().float()
     mJ = mJ.float()
     del C
+    N, s = Ls.shape[0], 20
     iu, ju = (torch.as_tensor(x, device=dev)
-              for x in np.triu_indices(Ls.shape[0], k=1))
+              for x in np.triu_indices(N, k=1))
+    P = iu.numel()
+    # the main paths' own calls at this shape, each against its plain
+    # version: the whole matrix (one device), then every shard's row slab
+    # of a 4-shard mesh with the pairs anchored there (the last slab too)
+    nloc, assign = _pair_assignment(N, 4)
+    calls = [("whole matrix", (mJ, Ls, iu, ju), {})]
+    for d, (a, o, _, _) in enumerate(assign):
+        calls.append((f"shard {d} slab, sites {d * nloc}:"
+                      f"{min(N, (d + 1) * nloc)}",
+                      (mJ[d * nloc * s:(d + 1) * nloc * s], Ls,
+                       torch.as_tensor(a, device=dev),
+                       torch.as_tensor(o, device=dev)), {"row0": d * nloc}))
+    for name, args, kw in calls:
+        got = di_kernel.di_pairs(*args, **kw)
+        want = di_kernel.di_pairs_torch(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (np.isfinite(err) and err <= tol[torch.float32]):
+            raise AssertionError(
+                f"di_pairs differs from its plain version at N={N} s={s} "
+                f"({name}): max abs {err} > {tol[torch.float32]}")
+        err_b[torch.float32] = max(err_b[torch.float32], err)
+        log(f"[kernels] di_pairs vs plain, N={N} s={s} {name}: "
+            f"P={args[2].numel()} f32 max abs {err:.3e}")
+    del got, want, calls
     ms_b = cuda_ms(lambda: di_kernel.di_pairs(mJ, Ls, iu, ju), reps=5)
     plain_b = cuda_ms(lambda: di_kernel.di_pairs_torch(mJ, Ls, iu, ju),
                       reps=3)
-    log(f"[kernels] di_pairs N={Ls.shape[0]} s=20 P={iu.numel()} f32: kernel "
-        f"{ms_b:.3f} ms, plain {plain_b:.3f} ms")
+    # per pair: 42 s x s products (rho, G, 14 trimmed Newton-Schulz
+    # steps) and the elimination, in f32 off the tensor cores; reads each
+    # pair's J block and two factors, writes one value
+    iters = di_kernel.BM_NS_ITERS
+    products = 3 + 1 + 3 * (iters - 2) + 2
+    bound_b = bound(P * (3 * s * s + 5) * 4,
+                    P * (products * 2 * s ** 3 + 2 * s ** 3 / 3),
+                    F32_FLOPS_S)
+    log(f"[kernels] di_pairs N={N} s={s} P={P} f32: kernel "
+        f"{ms_b:.3f} ms, plain {plain_b:.3f} ms; bound {bound_b[0]:.2f} ms"
+        f" ({bound_b[1]})")
     return [
         {"name": "row_stats", "route": "cuda",
          "source": "gaussdca_tpu_torch/csrc/row_stats.cu",
          "replaces": "gaussdca_tpu/ops/distance.py:310",
-         "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a},
+         "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
+         "bound_ms": bound_a[0], "bound_by": bound_a[1],
+         "library_ms": None},
+        {"name": "row_stats_rect", "route": "cuda",
+         "source": "gaussdca_tpu_torch/csrc/row_stats_rect.cu",
+         "replaces": "gaussdca_tpu/ops/distance.py:720",
+         "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
+         "bound_ms": bound_c[0], "bound_by": bound_c[1],
+         "library_ms": None},
         {"name": "di_pairs", "route": "cuda",
          "source": "gaussdca_tpu_torch/csrc/di_pairs.cu",
          "replaces": "gaussdca_tpu/ops/di_kernel.py:80",
          "max_abs_err": err_b[torch.float32], "ms": ms_b,
-         "plain_ms": plain_b},
+         "plain_ms": plain_b, "bound_ms": bound_b[0],
+         "bound_by": bound_b[1], "library_ms": None},
     ]
 
 
@@ -250,10 +413,12 @@ def _load_golden(path):
     return out
 
 
-def phase_golden():
+def phase_golden(mesh=None):
+    """The golden configs on cuda:0, or through ``mesh``."""
     import torch
     import gaussdca_tpu_torch as g
 
+    tag = "golden" if mesh is None else "mesh golden"
     for name, fa, gold, kw, f32_tol in GOLDEN:
         want = _load_golden(os.path.join(GOLDEN_DIR, gold))
         keys = sorted(want)
@@ -262,7 +427,7 @@ def phase_golden():
         for dt in (torch.float64, torch.float32):
             t0 = time.perf_counter()
             r = g.gdca(os.path.join(GOLDEN_DIR, fa), dtype=dt,
-                       device="cuda", **kw)
+                       device="cuda", mesh=mesh, **kw)
             wall = time.perf_counter() - t0
             got = {(i, j): x for i, j, x in r.ranking}
             if set(got) != set(want):
@@ -277,38 +442,73 @@ def phase_golden():
                 gate = f"max abs <= {f32_tol:g}"
             ranked = [(i, j) for i, j, _ in r.ranking]
             overlap = [len(set(ranked[:k]) & set(top[:k])) for k in (10, 100)]
-            log(f"[golden] {name} {str(dt)[6:]}: max abs err {err:.3e} "
+            log(f"[{tag}] {name} {str(dt)[6:]}: max abs err {err:.3e} "
                 f"({gate}: {'PASS' if ok else 'FAIL'}), top-10 overlap "
                 f"{overlap[0]}/10, top-100 {overlap[1]}/100, {wall:.2f} s")
             if not ok:
-                raise AssertionError(f"golden {name} {dt} failed its gate")
+                raise AssertionError(f"{tag} {name} {dt} failed its gate")
 
 
-def phase_real_size(dev):
+# (name, M, N, options, max abs mesh-vs-one-device score difference): the
+# limits stand 8-10x above the differences measured on an H100, 1.3e-6
+# (frob) and 1.9e-5 (DI); PERF.md has the runs
+REAL_SIZE = [
+    ("frob auto-theta M=32768 N=384 q=21", 32768, 384,
+     dict(score="frob", pseudocount=0.8, theta="auto"), 1e-5),
+    ("DI pc=0.2 theta=0.2 M=1024 N=1000 q=21", 1024, 1000,
+     dict(score="DI", pseudocount=0.2, theta=0.2), 2e-4),
+]
+
+
+def _against_single(name, r, single, tol):
+    """A mesh ranking against the single-device ranking of the same call:
+    the same pair set, finite, max abs difference <= tol, top-100 overlap
+    >= 95."""
+    got = {(i, j): x for i, j, x in r.ranking}
+    want = {(i, j): x for i, j, x in single.ranking}
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: mesh and single-device pair sets "
+                             "differ")
+    diff = max(abs(got[k] - want[k]) for k in want)
+    top = len({p[:2] for p in r.ranking[:100]}
+              & {p[:2] for p in single.ranking[:100]})
+    log(f"[mesh real] {name}: vs single device max abs diff {diff:.3e} "
+        f"(limit {tol:g}), top-100 overlap {top}/100, theta "
+        f"{r.theta:.6f} / {single.theta:.6f}, Meff {r.meff:.3f} / "
+        f"{single.meff:.3f}")
+    if not (np.isfinite(diff) and diff <= tol) or top < 95:
+        raise AssertionError(f"{name}: mesh run disagrees with the single-"
+                             "device run")
+
+
+def phase_real_size(dev, mesh=None, single=None):
+    """The real-size families on ``dev``, or through ``mesh`` held
+    against ``single`` (the single-device results by name). Returns the
+    results by name."""
     import torch
     from gaussdca_tpu_torch import api
     from gaussdca_tpu_torch.core.config import GDCAConfig
     from gaussdca_tpu_torch.interop import msa_from_arrays
+    from gaussdca_tpu_torch.parallel.sharded import pad_rows, sharded_scores
 
-    runs = [
-        ("frob auto-theta M=32768 N=384 q=21", 32768, 384,
-         dict(score="frob", pseudocount=0.8, theta="auto")),
-        ("DI pc=0.2 theta=0.2 M=1024 N=1000 q=21", 1024, 1000,
-         dict(score="DI", pseudocount=0.2, theta=0.2)),
-    ]
-    for name, M, N, kw in runs:
+    tag = "real" if mesh is None else f"mesh real {mesh.size} shards"
+    results = {}
+    for name, M, N, kw, tol in REAL_SIZE:
         tokens = family_tokens(M, N, 21, seed=M + N)
         M, N = tokens.shape
         msa = msa_from_arrays(tokens, 21, [str(i) for i in range(M)])
         cfg = GDCAConfig(device="cuda", dtype=torch.float32, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = api.gdca_from_msa(msa, cfg)
+        r = api.gdca_from_msa(msa, cfg, mesh=mesh)
         e2e = time.perf_counter() - t0
+        results[name] = r
         npairs = (N - 5) * (N - 4) // 2
         if len(r) != npairs or not all(np.isfinite(x) for _, _, x in r):
             raise AssertionError(f"{name}: ranking is not {npairs} finite "
                                  "pairs")
+        if single is not None:
+            _against_single(name, r, single[name], tol)
         # the same pipeline again, synchronized after every stage
         stamps = [("start", time.perf_counter())]
 
@@ -317,17 +517,23 @@ def phase_real_size(dev):
             stamps.append((stage, time.perf_counter()))
 
         torch.cuda.reset_peak_memory_stats()
-        Z = torch.as_tensor(tokens, device=dev)
         with api.full_f32_matmuls():
-            S, _, _ = api.scores_pipeline(Z, 21, cfg, mark=mark)
+            if mesh is None:
+                S, _, _ = api.scores_pipeline(
+                    torch.as_tensor(tokens, device=dev), 21, cfg, mark=mark)
+            else:
+                S, _, _ = sharded_scores(
+                    mesh, pad_rows(torch.as_tensor(tokens), mesh.size), cfg,
+                    21, m_true=M, mark=mark)
         api._checked_ranking(S.cpu().numpy(), cfg.min_separation)
         stamps.append(("rank", time.perf_counter()))
         stages = ", ".join(f"{b[0]} {b[1] - a[1]:.3f}"
                            for a, b in zip(stamps, stamps[1:]))
-        log(f"[real] {name}: end to end {e2e:.3f} s (theta {r.theta:.4f}, "
-            f"Meff {r.meff:.1f}, {len(r)} pairs, top {r[0]}); stages (s): "
-            f"{stages}; peak device memory "
+        log(f"[{tag}] {name}: end to end {e2e:.3f} s (theta "
+            f"{r.theta:.4f}, Meff {r.meff:.1f}, {len(r)} pairs, top "
+            f"{r[0]}); stages (s): {stages}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return results
 
 
 def main() -> int:
@@ -342,6 +548,7 @@ def main() -> int:
             "runs only on a CUDA device")
         return 1
     from gaussdca_tpu_torch.ops import di_kernel, distance
+    from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -349,19 +556,37 @@ def main() -> int:
     phase_device()
     phase_build()
     kernels = phase_kernels(dev)
+    counters = {"row_stats": distance.row_stats,
+                "row_stats_rect": distance.row_stats_rect,
+                "di_pairs": di_kernel.di_pairs}
 
-    distance.row_stats.launches = 0
-    di_kernel.di_pairs.launches = 0
-    phase_golden()
-    phase_real_size(dev)
-    launches = {"row_stats": distance.row_stats.launches,
-                "di_pairs": di_kernel.di_pairs.launches}
-    log(f"[main path] kernel launches: {launches}")
+    def drive(path, needs, phases):
+        """Run one main path with the counters zeroed just before it;
+        returns its launches and fails if a kernel of it never ran."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = phases()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        log(f"[main path: {path}] kernel launches: {launches}")
+        for k in needs:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} never ran on the {path} "
+                                     "path")
+        return launches, out
+
+    single_n, single = drive(
+        "single device", ("row_stats", "di_pairs"),
+        lambda: (phase_golden(), phase_real_size(dev))[1])
+    mesh = Mesh([dev] * 4, (2, 2))
+    mesh_n, _ = drive(
+        "mesh of 4 shards on cuda:0", ("row_stats_rect", "di_pairs"),
+        lambda: (phase_golden(mesh), phase_real_size(dev, mesh, single)))
+    if torch.cuda.device_count() > 1:
+        phase_real_size(dev, make_mesh(), single)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"kernel {k['name']} never ran on the "
-                                 "main path")
+        k["launches"] = single_n[k["name"]] + mesh_n[k["name"]]
+        k["launches_by_path"] = {"single": single_n[k["name"]],
+                                 "mesh": mesh_n[k["name"]]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

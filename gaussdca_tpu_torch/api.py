@@ -1,4 +1,4 @@
-"""Public API: the full Gaussian DCA pipeline on one device.
+"""Public API: the full Gaussian DCA pipeline, on one device or a mesh.
 
 ``gdca(filename, **kwargs)`` mirrors ``gaussdca_tpu.gdca`` (the reference
 ``gDCA``): FASTA -> (dedup) -> reweighting -> weighted frequencies ->
@@ -6,12 +6,12 @@ pseudocount -> covariance -> Cholesky inverse -> FN or DI scores -> APC ->
 min-separation ranking. The host does ingest, dedup and the final sort;
 everything in between runs on ``cfg.device`` as eager PyTorch around the
 two hand-written kernels (``ops.distance.row_stats``,
-``ops.di_kernel.di_pairs``).
+``ops.di_kernel.di_pairs``). With ``mesh=`` the same pipeline runs
+sharded over a grid of devices (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Union
 
@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from gaussdca_tpu_torch.core.config import GDCAConfig
+from gaussdca_tpu_torch.core.runtime import full_f32_matmuls, no_mark
 from gaussdca_tpu_torch.io import fasta
+from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gaussdca_tpu_torch.score.apc import correct_apc
 from gaussdca_tpu_torch.score.di import di_score
 from gaussdca_tpu_torch.score.frob import frob_score
@@ -56,28 +58,8 @@ class GDCAResult:
         return self.ranking[k]
 
 
-@contextlib.contextmanager
-def full_f32_matmuls():
-    """TF32 off for matmuls and convolutions, the caller's settings
-    restored afterwards: TF32 keeps ~3 digits, and the scores amplify
-    the loss through cond(C) (the analogue of JAX's "highest")."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
-def _no_mark(stage: str) -> None:
-    pass
-
-
 def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig, *,
-                    mark: Callable[[str], None] = _no_mark):
+                    mark: Callable[[str], None] = no_mark):
     """Device pipeline: tokens Z [M, N] (on the run's device) -> the
     APC-corrected score matrix S [N, N], the resolved theta and Meff.
     ``mark(stage)`` is called after each of "reweight", "frequencies",
@@ -118,8 +100,31 @@ def _checked_ranking(S: np.ndarray, min_separation: int) -> Ranking:
     return R
 
 
-def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig) -> GDCAResult:
-    """Run the device pipeline + ranking on an already-ingested MSA."""
+def resolve_mesh(mesh) -> Mesh:
+    """Normalize a ``mesh`` argument: Mesh | "auto" | (dp, tp) -> Mesh.
+    "auto" and a shape take the visible CUDA cards and raise when there
+    are too few."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if isinstance(mesh, str) and mesh == "auto":
+        return make_mesh()
+    if isinstance(mesh, (tuple, list)) and len(mesh) == 2:
+        return make_mesh(int(mesh[0]) * int(mesh[1]),
+                         shape=(int(mesh[0]), int(mesh[1])))
+    raise ValueError(
+        f"invalid mesh: {mesh!r} (expected a "
+        "gaussdca_tpu_torch.parallel.mesh.Mesh, 'auto', "
+        "or a (data, model) shape tuple)")
+
+
+def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
+                  mesh: Any = None) -> GDCAResult:
+    """Run the device pipeline + ranking on an already-ingested MSA.
+
+    ``mesh``: a ``Mesh``, a ``(dp, tp)`` shape or "auto" (every visible
+    card) runs the sharded pipeline over it instead of ``cfg.device``
+    (whose type must match the mesh's devices). Results match the
+    single-device run to floating-point summation order."""
     if cfg.remove_dups:
         msa = fasta.remove_duplicate_sequences(msa)
     q = msa.q
@@ -130,9 +135,22 @@ def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig) -> GDCAResult:
         # no statistics exist to estimate
         raise ValueError(
             f"alignment uses only {q} symbol(s); at least 2 are required")
-    Z = torch.as_tensor(msa.tokens, device=cfg.resolve_device())
-    with full_f32_matmuls():
-        S, th, meff = scores_pipeline(Z, q, cfg)
+    if mesh is not None:
+        from gaussdca_tpu_torch.parallel.sharded import pad_rows, \
+            sharded_scores
+
+        mesh = resolve_mesh(mesh)
+        if mesh.home.type != cfg.resolve_device().type:
+            raise ValueError(
+                f"mesh on {mesh.home.type} devices but device="
+                f"{cfg.device!r}: pass a matching device")
+        Z = pad_rows(torch.as_tensor(msa.tokens), mesh.size)
+        with full_f32_matmuls():
+            S, th, meff = sharded_scores(mesh, Z, cfg, q, m_true=msa.M)
+    else:
+        Z = torch.as_tensor(msa.tokens, device=cfg.resolve_device())
+        with full_f32_matmuls():
+            S, th, meff = scores_pipeline(Z, q, cfg)
     R = _checked_ranking(S.cpu().numpy(), cfg.min_separation)
     return GDCAResult(
         ranking=R, M=msa.M, N=msa.N, q=q,
@@ -153,13 +171,16 @@ def gdca(
     remove_dups: bool = False,
     dtype: Any = torch.float32,
     device: Any = "cuda",
+    mesh: Any = None,
 ) -> GDCAResult:
     """Contact-prediction ranking of an MSA file.
 
     Same keyword names, defaults and validation as the reference ``gDCA``
     and ``gaussdca_tpu.gdca``; ``dtype`` (float32 or float64) and
     ``device`` (default "cuda"; a CPU device runs every kernel's plain
-    PyTorch version) choose where and how it runs. Returns a GDCAResult:
+    PyTorch version) choose where and how it runs; ``mesh`` (see
+    ``gdca_from_msa``) shards the run over several devices. Returns a
+    GDCAResult:
     1-based (i, j, score) triples sorted by descending score, plus run
     metadata.
     """
@@ -170,7 +191,8 @@ def gdca(
         dtype=dtype, device=device,
     )
     msa = fasta.read_fasta_alignment(filename, cfg.max_gap_fraction)
-    return gdca_from_msa(msa, cfg)
+    return gdca_from_msa(msa, cfg, mesh=mesh)
 
 
-__all__ = ["gdca", "gdca_from_msa", "printrank", "GDCAConfig", "GDCAResult"]
+__all__ = ["gdca", "gdca_from_msa", "printrank", "resolve_mesh", "Mesh",
+           "GDCAConfig", "GDCAResult"]

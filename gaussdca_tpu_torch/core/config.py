@@ -60,6 +60,12 @@ class GDCAConfig:
     ``dtype``: compute dtype of the statistical pipeline, float32 or
     float64 (a torch dtype or its name). ``device``: where the pipeline
     runs; a CPU device runs every kernel's plain PyTorch version.
+
+    Mesh-path solve thresholds (``parallel/sharded.py``, as in the JAX
+    package): at N*s >= ``solve_min_dim`` (4096) the covariance inverse
+    switches from the replicated Cholesky to the storage-sharded
+    factorization with ``solve_block``-sized panels (1024). Single-device
+    runs ignore both.
     """
 
     pseudocount: float = 0.8
@@ -68,6 +74,9 @@ class GDCAConfig:
     score: str = "frob"
     min_separation: int = 5
     remove_dups: bool = False
+
+    solve_min_dim: int = 4096
+    solve_block: int = 1024
 
     dtype: Any = torch.float32
     device: Any = "cuda"
@@ -102,6 +111,15 @@ class GDCAConfig:
             raise ValueError(
                 f"invalid min_separation value: {self.min_separation} "
                 "(must be >= 1)")
+        if not (isinstance(self.solve_min_dim, int)
+                and self.solve_min_dim >= 1):
+            raise ValueError(
+                f"invalid solve_min_dim value: {self.solve_min_dim} "
+                "(must be >= 1)")
+        if not (isinstance(self.solve_block, int) and self.solve_block >= 8):
+            raise ValueError(
+                f"invalid solve_block value: {self.solve_block} "
+                "(must be >= 8)")
         self.resolve_dtype()
         self.resolve_device()
 

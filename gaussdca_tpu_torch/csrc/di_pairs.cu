@@ -3,7 +3,9 @@
 // Replaces gaussdca_tpu/ops/di_kernel.py::ns_sqrtm_pallas together with
 // the XLA-fused core around it, gaussdca_tpu/score/di.py::_di_pairs_bm_minor.
 // For pair p = (i, j) = (iu[p], ju[p]) with s = q - 1, it reads the s x s
-// coupling block J = mJ[i*s:(i+1)*s, j*s:(j+1)*s] and the Cholesky factors
+// coupling block J = mJ[(i-row0)*s:(i-row0+1)*s, j*s:(j+1)*s] (mJ may be
+// the row slab of the sites from row0 on; row0 = 0 for the whole matrix)
+// and the Cholesky factors
 // Li = Lsite[i], Lj = Lsite[j] straight from their arrays (no [P, s, s]
 // gathers), then, exactly as _di_pairs_bm_minor:
 //
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 di_pairs_kernel(const T* __restrict__ mJ, const T* __restrict__ Lsite,
                 const int64_t* __restrict__ iu, const int64_t* __restrict__ ju,
                 T* __restrict__ out, long long P, int s, long long Ns,
-                int iters) {
+                long long row0, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -91,7 +93,7 @@ di_pairs_kernel(const T* __restrict__ mJ, const T* __restrict__ Lsite,
   const long long i = iu[p], j = ju[p];
   for (int e = lane; e < s2; e += 32) {
     const int a = e / s, c = e % s;
-    buf[0][e] = mJ[(i * s + a) * Ns + j * s + c];   // J[a][c]
+    buf[0][e] = mJ[((i - row0) * s + a) * Ns + j * s + c];   // J[a][c]
     buf[1][e] = Lsite[(i * s + c) * s + a];         // Li^T[a][c] = Li[c][a]
     buf[2][e] = Lsite[(j * s + a) * s + c];         // Lj[a][c]
   }
@@ -177,8 +179,8 @@ di_pairs_kernel(const T* __restrict__ mJ, const T* __restrict__ Lsite,
 
 template <typename T>
 int launch(const void* mJ, const void* Lsite, const void* iu, const void* ju,
-           void* out, long long P, int s, long long Ns, int iters,
-           void* stream) {
+           void* out, long long P, int s, long long Ns, long long row0,
+           int iters, void* stream) {
   if (P <= 0) return cudaSuccess;
   if (s < 1 || s > MAXS || iters < 0) return cudaErrorInvalidValue;
   const size_t smem = (size_t)WARPS * NBUF * s * s * sizeof(T);
@@ -194,25 +196,27 @@ int launch(const void* mJ, const void* Lsite, const void* iu, const void* ju,
                        (cudaStream_t)stream>>>(
       static_cast<const T*>(mJ), static_cast<const T*>(Lsite),
       static_cast<const int64_t*>(iu), static_cast<const int64_t*>(ju),
-      static_cast<T*>(out), P, s, Ns, iters);
+      static_cast<T*>(out), P, s, Ns, row0, iters);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mJ: [Ns, Ns] row-major with Ns = N s; Lsite: [N, s, s] row-major lower
-// Cholesky factors of the diagonal blocks of C; iu, ju: [P] int64 site
-// indices; out: [P]. Launches on `stream`, returns cudaGetLastError().
+// mJ: [rows s, Ns] row-major with Ns = N s, the rows of sites row0 ..
+// row0 + rows - 1; Lsite: [N, s, s] row-major lower Cholesky factors of
+// the diagonal blocks of C; iu, ju: [P] int64 site indices, iu in the
+// slab's sites; out: [P]. Launches on `stream`, returns cudaGetLastError().
 extern "C" int gdca_di_pairs_f32(const void* mJ, const void* Lsite,
                                  const void* iu, const void* ju, void* out,
-                                 long long P, int s, long long Ns, int iters,
-                                 void* stream) {
-  return launch<float>(mJ, Lsite, iu, ju, out, P, s, Ns, iters, stream);
+                                 long long P, int s, long long Ns,
+                                 long long row0, int iters, void* stream) {
+  return launch<float>(mJ, Lsite, iu, ju, out, P, s, Ns, row0, iters, stream);
 }
 
 extern "C" int gdca_di_pairs_f64(const void* mJ, const void* Lsite,
                                  const void* iu, const void* ju, void* out,
-                                 long long P, int s, long long Ns, int iters,
-                                 void* stream) {
-  return launch<double>(mJ, Lsite, iu, ju, out, P, s, Ns, iters, stream);
+                                 long long P, int s, long long Ns,
+                                 long long row0, int iters, void* stream) {
+  return launch<double>(mJ, Lsite, iu, ju, out, P, s, Ns, row0, iters,
+                        stream);
 }

@@ -14,7 +14,8 @@
 // unit; here tokens are packed 4 to a 32-bit word and compared bytewise
 // (the reference's XOR/popcount idea): per word, one XOR, a carry-free
 // byte-zero test, a mask of a's non-zero bytes and one popcount give the
-// matches of four columns. The work is O(M^2 N / 4) integer operations on
+// matches of four columns (packed_match.cuh, shared with the rectangular
+// kernel row_stats_rect.cu). The work is O(M^2 N / 4) integer operations on
 // O(M N) bytes, so the kernel is bound by integer throughput (popcount is
 // the narrowest pipe), not by memory: each block stages two 64-row token
 // tiles in shared memory, 16 words at a time, and each of its 256 threads
@@ -28,22 +29,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "packed_match.cuh"
+
 namespace {
 
-constexpr int TILE = 64;       // rows per tile side
-constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 pairs each
-constexpr int KW = 16;         // words (4 tokens each) staged per step
-
-// high bit of each byte set iff that byte of x is non-zero (no carry
-// crosses a byte: (x & 0x7F) + 0x7F <= 0xFE)
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
-  return (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
-}
-
-// high bit of each byte set iff x and y agree in that byte
-__device__ __forceinline__ uint32_t equal_bytes(uint32_t x, uint32_t y) {
-  return ~nonzero_bytes(x ^ y) & 0x80808080u;
-}
+using gdca::KW;
+using gdca::THREADS;
+using gdca::TILE;
 
 __global__ void __launch_bounds__(THREADS)
 row_stats_kernel(const uint32_t* __restrict__ Z, int M, int W, int n_true,
@@ -68,37 +60,7 @@ row_stats_kernel(const uint32_t* __restrict__ Z, int M, int W, int n_true,
   for (int i = threadIdx.x; i < 4 * TILE; i += THREADS) red[i / TILE][i % TILE] = 0;
 
   uint32_t cnt[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) cnt[i][j] = 0;
-
-  for (int k0 = 0; k0 < W; k0 += KW) {
-    for (int i = threadIdx.x; i < TILE * KW; i += THREADS) {
-      const int r = i / KW, w = i % KW;
-      const int ga = a0 + r, gb = b0 + r;
-      sa[r][w] = (ga < M) ? Z[(size_t)ga * W + k0 + w] : 0u;
-      sb[r][w] = (gb < M) ? Z[(size_t)gb * W + k0 + w] : 0u;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < KW; ++w) {
-      uint32_t av[4], an[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = sa[ty + 16 * i][w];
-        an[i] = nonzero_bytes(av[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sb[tx + 16 * j][w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          cnt[i][j] += __popc(equal_bytes(av[i], bv[j]) & an[i]);
-    }
-    __syncthreads();
-  }
+  gdca::tile_matches(Z, M, a0, Z, M, b0, W, sa, sb, cnt);
 
   unsigned int rs_row[4] = {0, 0, 0, 0}, bl_row[4] = {0, 0, 0, 0};
   unsigned int rs_col[4] = {0, 0, 0, 0}, bl_col[4] = {0, 0, 0, 0};

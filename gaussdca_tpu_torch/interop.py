@@ -21,7 +21,8 @@ from gaussdca_tpu_torch.core.config import GDCAConfig
 from gaussdca_tpu_torch.io.fasta import MSA
 
 _SHARED_FIELDS = ("pseudocount", "theta", "max_gap_fraction", "score",
-                  "min_separation", "remove_dups")
+                  "min_separation", "remove_dups", "solve_min_dim",
+                  "solve_block")
 
 # fields of the reference config this port does not support yet, with the
 # only value it accepts for each (the reference default)
@@ -30,8 +31,6 @@ _UNSUPPORTED_DEFAULTS = {
     "precision": "highest",  # the port always runs full-f32 matmuls
     "m_bucket": 0,
     "n_bucket": 0,
-    "solve_min_dim": 4096,
-    "solve_block": 1024,
 }
 
 

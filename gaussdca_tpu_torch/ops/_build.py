@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so ``nvcc`` builds it in seconds. The shared library lands in
 ``gaussdca_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Nothing here runs at import time: the first CUDA call
-of a kernel's wrapper triggers the build. There is no fallback: a missing
-``nvcc`` or a failed build raises.
+source, the shared headers and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. Nothing here runs at import
+time: the first CUDA call of a kernel's wrapper triggers the build. There
+is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -48,11 +48,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{key[:16]}.so")
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -13,6 +13,11 @@ and f64), which takes the place of both the TPU's Pallas Newton-Schulz
 kernel ``ns_sqrtm_pallas`` and the XLA core around it; the source says
 what bounds it. On a CPU tensor it runs ``di_pairs_torch``.
 ``ns_sqrtm_torch`` is the plain counterpart of ``ns_sqrtm_pallas``.
+
+``mJ`` may be a row slab ``[rows s, N s]`` of the coupling matrix that
+starts at site ``row0`` (the mesh path keeps mJ in per-shard slabs): J_ij
+is then read from slab row ``(i - row0) s``, and every ``iu`` must lie in
+the slab. ``Lsite`` stays global.
 """
 
 from __future__ import annotations
@@ -82,18 +87,18 @@ def _di_block(Jb, Li, Lj, iters: int) -> torch.Tensor:
 
 def di_pairs_torch(mJ: torch.Tensor, Lsite: torch.Tensor, iu: torch.Tensor,
                    ju: torch.Tensor, iters: int = BM_NS_ITERS, *,
-                   pair_chunk: int = 65536) -> torch.Tensor:
+                   row0: int = 0, pair_chunk: int = 65536) -> torch.Tensor:
     """Plain PyTorch ``di_pairs``: batched matmuls over pair chunks,
     gathering each chunk's [chunk, s, s] blocks (memory O(chunk s^2))."""
     N, s, _ = Lsite.shape
-    J4 = mJ.reshape(N, s, N, s)
+    J4 = mJ.reshape(mJ.shape[0] // s, s, N, s)
     P = iu.numel()
     out = torch.empty(P, dtype=mJ.dtype, device=mJ.device)
     for c0 in range(0, P, pair_chunk):
         ii = iu[c0:c0 + pair_chunk]
         jj = ju[c0:c0 + pair_chunk]
-        out[c0:c0 + pair_chunk] = _di_block(J4[ii, :, jj, :], Lsite[ii],
-                                            Lsite[jj], iters)
+        out[c0:c0 + pair_chunk] = _di_block(J4[ii - row0, :, jj, :],
+                                            Lsite[ii], Lsite[jj], iters)
     return out
 
 
@@ -103,22 +108,27 @@ def _lib() -> ctypes.CDLL:
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
 
 def di_pairs(mJ: torch.Tensor, Lsite: torch.Tensor, iu: torch.Tensor,
-             ju: torch.Tensor, iters: int = BM_NS_ITERS) -> torch.Tensor:
+             ju: torch.Tensor, iters: int = BM_NS_ITERS,
+             row0: int = 0) -> torch.Tensor:
     """DI [P] of the pairs (iu[p], ju[p]) from the coupling matrix mJ
-    [N s, N s] and the site Cholesky factors Lsite [N, s, s] (s <= 30).
-    CPU tensors take ``di_pairs_torch``; CUDA tensors launch the kernel
-    (build and launch errors raise)."""
+    [N s, N s], or its row slab [rows s, N s] from site ``row0`` on, and
+    the site Cholesky factors Lsite [N, s, s] (s <= 30). CPU tensors take
+    ``di_pairs_torch``; CUDA tensors launch the kernel (build and launch
+    errors raise)."""
     N, s, s2 = Lsite.shape
-    if s != s2 or mJ.shape != (N * s, N * s) or not 1 <= s <= 30:
+    rows = mJ.shape[0] // s if s else 0
+    if (s != s2 or mJ.dim() != 2 or mJ.shape != (rows * s, N * s)
+            or not 1 <= s <= 30 or rows < 1 or not 0 <= row0 <= N - rows):
         raise ValueError(
             f"di_pairs: shapes mJ {tuple(mJ.shape)}, Lsite "
-            f"{tuple(Lsite.shape)} (need mJ [N s, N s], 1 <= s <= 30)")
+            f"{tuple(Lsite.shape)}, row0 {row0} (need mJ [rows s, N s] "
+            "with row0 + rows <= N, 1 <= s <= 30)")
     if mJ.dtype != Lsite.dtype or mJ.dtype not in (torch.float32,
                                                    torch.float64):
         raise ValueError(f"di_pairs: dtypes {mJ.dtype}, {Lsite.dtype} "
@@ -126,8 +136,14 @@ def di_pairs(mJ: torch.Tensor, Lsite: torch.Tensor, iu: torch.Tensor,
     if iu.shape != ju.shape or iu.dim() != 1 or iters < 0:
         raise ValueError("di_pairs: iu, ju must be equal-length 1-D "
                          "index vectors and iters >= 0")
+    if iu.numel() and not (
+            row0 <= int(iu.min()) and int(iu.max()) < row0 + rows
+            and 0 <= int(ju.min()) and int(ju.max()) < N):
+        raise ValueError(
+            f"di_pairs: pair indices out of range (iu in [{row0}, "
+            f"{row0 + rows}), ju in [0, {N}) required)")
     if mJ.device.type == "cpu":
-        return di_pairs_torch(mJ, Lsite, iu, ju, iters)
+        return di_pairs_torch(mJ, Lsite, iu, ju, iters, row0=row0)
     if mJ.device.type != "cuda":
         raise ValueError(f"di_pairs: unsupported device {mJ.device}")
     mJ = mJ.contiguous()
@@ -145,7 +161,7 @@ def di_pairs(mJ: torch.Tensor, Lsite: torch.Tensor, iu: torch.Tensor,
           else lib.gdca_di_pairs_f64)
     with torch.cuda.device(mJ.device):
         err = fn(mJ.data_ptr(), Lsite.data_ptr(), iu.data_ptr(),
-                 ju.data_ptr(), out.data_ptr(), P, s, N * s, iters,
+                 ju.data_ptr(), out.data_ptr(), P, s, N * s, row0, iters,
                  torch.cuda.current_stream(mJ.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"di_pairs kernel launch failed: CUDA error {err}")

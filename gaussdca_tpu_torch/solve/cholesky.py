@@ -13,6 +13,8 @@ part of this port.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NOT_POSITIVE_DEFINITE = (
@@ -22,14 +24,18 @@ NOT_POSITIVE_DEFINITE = (
     "PosDefException from inv(cholesky(C))")
 
 
-def spd_inverse(C: torch.Tensor) -> torch.Tensor:
+def spd_inverse(C: torch.Tensor,
+                refine_iters: Optional[int] = None) -> torch.Tensor:
     """Inverse of a symmetric positive-definite matrix; raises
-    ArithmeticError when the Cholesky factorization fails."""
+    ArithmeticError when the Cholesky factorization fails.
+    ``refine_iters`` Newton steps follow (None: 1 in f32, 0 in f64)."""
     L, info = torch.linalg.cholesky_ex(C)
     if int(info) != 0:
         raise ArithmeticError(NOT_POSITIVE_DEFINITE)
     X = torch.cholesky_inverse(L)
-    if C.dtype == torch.float32:
+    if refine_iters is None:
+        refine_iters = 1 if C.dtype == torch.float32 else 0
+    for _ in range(refine_iters):
         R = -(C @ X)
         R.diagonal().add_(1.0)
         X = X + X @ R

@@ -12,13 +12,16 @@ The contract of ``gaussdca_tpu.stats.reweight.compute_weights_streaming``:
   histograms, so the O(M^2 N) distance pass runs once in either theta
   mode.
 
-The distance pass is ``ops.distance.row_stats`` (the Hopper kernel on a
-CUDA tensor, its plain version on the CPU); only O(M) state is kept.
+The distance pass is ``row_stats_fn`` (default ``ops.distance.row_stats``:
+the Hopper kernel on a CUDA tensor, its plain version on the CPU); only
+O(M) state is kept. ``m_true`` is the unpadded row count when Z carries
+token-0 padding rows (the mesh path pads M to a multiple of its shard
+count): they leave the auto-theta pair count, W and Meff.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -38,11 +41,14 @@ def total_matches_closed_form(Z: torch.Tensor, q: int) -> int:
     return int((n * n).sum())
 
 
-def auto_theta_closed_form(Z: torch.Tensor, q: int) -> torch.Tensor:
+def auto_theta_closed_form(Z: torch.Tensor, q: int,
+                           m_true: Optional[int] = None) -> torch.Tensor:
     """Resolved auto-theta ``min(0.5, 0.1216 / meanfracid)``, a host f64
     scalar computed from the exact match total (NaN for a single row, as
-    in the reference package)."""
+    in the reference package). ``m_true``: the rows that are not token-0
+    padding (padding adds no matches, only to the pair count)."""
     M, N = Z.shape
+    M = M if m_true is None else int(m_true)
     tm = torch.tensor(total_matches_closed_form(Z, q), dtype=torch.float64)
     total = (tm - M * N) / 2.0
     mfi = total / (N * (M * (M - 1) / 2.0))
@@ -56,18 +62,24 @@ def compute_weights_streaming(
     q: int,
     *,
     dtype: torch.dtype = torch.float64,
+    row_stats_fn: Optional[Callable] = None,
+    m_true: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(W [M], Meff, resolved theta) of token matrix Z [M, N] in O(M)
-    memory; theta is "auto" or a real in [0, 1]."""
+    memory; theta is "auto" or a real in [0, 1].
+    ``row_stats_fn(Z, thresh) -> (rowsum, below)`` defaults to
+    ``row_stats``; rows at or past ``m_true`` get weight 0."""
     M, N = Z.shape
     if isinstance(theta, str):
         if theta != "auto":
             raise ValueError(f"invalid theta: {theta}")
-        theta = auto_theta_closed_form(Z, q)
+        theta = auto_theta_closed_form(Z, q, m_true)
     th = torch.as_tensor(theta, dtype=torch.float64).to(dtype)
     thresh = torch.floor(th * N)
-    _, below = row_stats(Z, thresh.to(torch.float32))
+    _, below = (row_stats_fn or row_stats)(Z, thresh.to(torch.float32))
     self_match = 1.0 if bool(thresh > 0) else 0.0
     below = torch.clamp(below.to(dtype) - self_match, min=0.0)
     W = 1.0 / (1.0 + below)
+    if m_true is not None:
+        W = W * (torch.arange(M, device=W.device) < m_true).to(dtype)
     return W, W.sum(), th

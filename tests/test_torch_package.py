@@ -39,8 +39,9 @@ def test_source_imports_no_jax():
 
 
 def test_import_and_cpu_run_load_no_jax():
-    """Not even indirectly: a fresh interpreter runs the port on the CPU
-    and ends with neither JAX nor the JAX package loaded."""
+    """Not even indirectly: a fresh interpreter runs the port on the CPU,
+    on one device and on a mesh, and ends with neither JAX nor the JAX
+    package loaded."""
     code = (
         "import sys, numpy as np, torch\n"
         "import gaussdca_tpu_torch as g\n"
@@ -48,8 +49,12 @@ def test_import_and_cpu_run_load_no_jax():
         "rng = np.random.default_rng(0)\n"
         "Z = rng.integers(1, 5, size=(30, 12), dtype=np.uint8)\n"
         "msa = msa_from_arrays(Z, 4, [str(i) for i in range(30)])\n"
+        "from gaussdca_tpu_torch.parallel.mesh import Mesh\n"
+        "mesh = Mesh(['cpu'] * 4, (2, 2))\n"
         "for score in ('frob', 'DI'):\n"
-        "    g.gdca_from_msa(msa, g.GDCAConfig(score=score, device='cpu'))\n"
+        "    cfg = g.GDCAConfig(score=score, device='cpu', solve_min_dim=8)\n"
+        "    g.gdca_from_msa(msa, cfg)\n"
+        "    g.gdca_from_msa(msa, cfg, mesh=mesh)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'gaussdca_tpu')]\n"
         "assert not bad, bad\n")

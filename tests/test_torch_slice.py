@@ -126,6 +126,8 @@ def test_singular_covariance_raises(score):
     dict(score="frobenius"),
     dict(score="di"),
     dict(min_separation=0),
+    dict(solve_min_dim=0),
+    dict(solve_block=4),
 ])
 def test_config_errors_match_jax(kwargs):
     with pytest.raises(ValueError) as want:
@@ -157,10 +159,13 @@ def test_config_from_reference_refuses_unsupported_fields():
     assert config_from_reference(
         dict(base, dtype="float64")).dtype == torch.float64
     for field, value in [("m_bucket", 64), ("n_bucket", 32),
-                         ("force_fallback", True), ("precision", "high"),
-                         ("solve_block", 512)]:
+                         ("force_fallback", True), ("precision", "high")]:
         with pytest.raises(ValueError, match=field):
             config_from_reference(dict(base, **{field: value}))
+    # the mesh-path solve thresholds carry over (the port has the mesh)
+    cfg = config_from_reference(dict(base, solve_block=512,
+                                     solve_min_dim=100))
+    assert (cfg.solve_block, cfg.solve_min_dim) == (512, 100)
     with pytest.raises(ValueError, match="unknown"):
         config_from_reference(dict(base, mesh="auto"))
 
