@@ -8,7 +8,7 @@ prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the TF32 flags as the pipeline sets them;
-2. build: the three CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
+2. build: the six CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
    nvcc, one compiler process each, all started together;
 3. kernels vs their plain PyTorch versions on the card: row statistics
    (kernel A, exact equality) at four shapes; rectangular row statistics
@@ -17,7 +17,15 @@ prints no result line):
    s = 8, 20, 30 on blocks from real pipelines, on the whole coupling
    matrix and on a row slab (f32 max abs <= 1e-5, f64 <= 1e-10), and at
    the DI family's N=1000, s=20 on the whole matrix and on each shard's
-   row slab and anchored pairs of the 4-shard mesh (f32 <= 1e-5); then
+   row slab and anchored pairs of the 4-shard mesh (f32 <= 1e-5); the
+   dense counts (kernel D), the grouped-row row statistics (kernel E)
+   and the one-hot-plane row statistics on the int8 tensor cores
+   (kernel F), each equal to its plain version and to kernel A at five
+   shapes (ragged M, token-0 pad rows, q = 21 / 29 / 31, for E a width
+   where its plan groups k >= 2 row tiles and one where it has no plan),
+   then at the main shape M=32768, N=384, q=21 (E and F equal to kernel
+   A, D's row sums and neighbour counts equal to kernel A's, and D equal
+   to the one one-hot ``torch.matmul`` timed as its library call); then
    the median times of kernel and plain version at the main-path shapes;
 4. single device: the four golden configs through ``gdca(...,
    device="cuda")``, f64 with the CPU suite's gate (same pair set, rtol
@@ -32,18 +40,29 @@ prints no result line):
    DI. Each real-size mesh run is held against the single-device run of
    the same call (same pair set, finite, max abs difference <= 1e-5 frob
    / 2e-4 DI, top-100 overlap >= 95). With
-   more than one card, the families run once more, one shard per card.
+   more than one card, the families run once more, one shard per card;
+6. ``top_k``: the small frob golden through ``gdca(..., top_k=100)``
+   gives the head of the full ranking of phase 4;
+7. the other distance kernels at the main shape, M=32768, N=384, q=21,
+   each as the distance pass a caller of the weight functions picks
+   (``compute_weights_streaming(..., row_stats_fn=...)`` with
+   ``row_stats_asym`` (E), ``row_stats_full`` (C on (Z, Z)) and
+   ``row_stats_sym_e8`` (F), and the dense ``compute_weights`` on
+   ``match_counts`` (D)), in f32 and f64: W, Meff and theta equal to
+   kernel A's.
 
-The launch counters are zeroed right before phase 4 and read after it
-(kernels A and B must have run), then zeroed before phase 5 and read
-after it (kernels C and B must have run). The line before the last is
-the kernel summary JSON; the last line is ``{"ok": true, "device":
-{...}}``. No CUDA device: exit 1, no result.
+The launch counters are zeroed right before each path of phases 4-7 and
+read after it; each path fails if a kernel of it never ran (A and B in 4,
+C and B in 5, A in 6, and E, C, F and D in the four paths of 7, where
+kernel A must not run). The line before the last is the kernel summary
+JSON; the last line is ``{"ok": true, "device": {...}}``. No CUDA
+device: exit 1, no result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import os
 import statistics
@@ -113,7 +132,8 @@ def phase_device():
             f"{torch.backends.cudnn.allow_tf32}")
 
 
-KERNELS = ("row_stats", "row_stats_rect", "di_pairs")
+KERNELS = ("row_stats", "row_stats_rect", "di_pairs", "match_counts",
+           "row_stats_asym", "row_stats_e8")
 
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
 HBM_BYTES_S = 3.35e12
@@ -306,9 +326,12 @@ def phase_kernels(dev):
     # the full-grid square kernel (row_stats_pallas' port) is kernel C
     # on (Z, Z): twice kernel A's pairs
     ms_full = cuda_ms(lambda: distance.row_stats_full(Z, thresh), reps=3)
+    plain_full = cuda_ms(
+        lambda: distance.row_stats_rect_torch(Z, Z, thresh), reps=3)
     bound_full = bound(M * N + 8 * M, 2 * M * M * N * 21, INT8_OPS_S)
     log(f"[kernels] row_stats_full M={M} N={N} q=21: kernel "
-        f"{ms_full:.3f} ms; bound {bound_full[0]:.2f} ms "
+        f"{ms_full:.3f} ms, plain {plain_full:.3f} ms; bound "
+        f"{bound_full[0]:.2f} ms "
         f"({bound_full[1]}), popcount-pipe bound "
         f"{M * M * N / 4 / POPC_WORDS_S * 1e3:.2f} ms")
     # kernel C at one shard of the 4-shard main path: 8192 rows vs all
@@ -392,6 +415,162 @@ def phase_kernels(dev):
     ]
 
 
+def _equal_stats(got, want, what):
+    """Row statistics equal, exactly; returns the max abs difference."""
+    import torch
+
+    for g, w, name in zip(got, want, ("rowsum", "below")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((g != w).sum())} rows")
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def phase_dense_kernels(dev):
+    """Kernels D, E and F against their plain versions and kernel A;
+    returns their records (without launch counts) for the summary line."""
+    import torch
+    from gaussdca_tpu_torch.ops import distance
+    from gaussdca_tpu_torch.stats import reweight
+
+    err = {"match_counts": 0.0, "row_stats_asym": 0.0,
+           "row_stats_sym_e8": 0.0}
+    for M, N, q, pad in [(1000, 53, 21, 24), (777, 250, 31, 0),
+                         (300, 40, 29, 5), (4096, 384, 21, 0),
+                         (2000, 1000, 21, 3)]:
+        Z = family_tokens(M, N, q, seed=3 * M + N)
+        if pad:
+            Z = np.concatenate([Z, np.zeros((pad, N), np.uint8)])
+        Zt = torch.as_tensor(Z, device=dev)
+        k = distance.plan_asym(N)
+        D = distance.match_counts(Zt)
+        Dp = distance.match_counts_torch(Zt)
+        torch.cuda.synchronize()
+        if not torch.equal(D, Dp):
+            raise AssertionError(f"match_counts differs from its plain "
+                                 f"version at M={M + pad} N={N} q={q}: "
+                                 f"{int((D != Dp).sum())} entries")
+        err["match_counts"] = max(err["match_counts"],
+                                  float((D - Dp).abs().max()))
+        planes = distance.one_hot_planes(Zt, q)
+        th_auto = float(reweight.auto_theta_closed_form(Zt, q))
+        for theta in (0.0, 0.2, th_auto, 0.7):
+            thresh = float(np.float32(np.floor(theta * N)))
+            what = f"M={M + pad} N={N} q={q} thresh={thresh}"
+            A = distance.row_stats(Zt, thresh)
+            E = distance.row_stats_asym(Zt, thresh)
+            F = distance.row_stats_e8(planes, N, thresh)
+            err["row_stats_asym"] = max(err["row_stats_asym"], _equal_stats(
+                E, distance.row_stats_asym_torch(Zt, thresh, k),
+                f"row_stats_asym vs plain, {what}"))
+            err["row_stats_sym_e8"] = max(
+                err["row_stats_sym_e8"], _equal_stats(
+                    F, distance.row_stats_e8_torch(planes, N, thresh),
+                    f"row_stats_sym_e8 vs plain, {what}"))
+            _equal_stats(E, A, f"row_stats_asym vs row_stats, {what}")
+            _equal_stats(F, A, f"row_stats_sym_e8 vs row_stats, {what}")
+            _equal_stats((D.sum(1, dtype=torch.int64).float(),
+                          ((N - D) < thresh).sum(1).float()), A,
+                         f"match_counts rows vs row_stats, {what}")
+        log(f"[kernels] match_counts, row_stats_asym (plan k={k}"
+            f"{', no plan: kernel A' if k < 2 else ''}), row_stats_sym_e8 "
+            f"== plain and == row_stats at M={M} N={N} q={q} (+{pad} "
+            f"token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f} / 0.7")
+
+    # --- the main shape: equal to kernel A, then times
+    Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
+    M, N, q = Z.shape[0], Z.shape[1], 21
+    k = distance.plan_asym(N)
+    thresh = float(np.floor(0.2 * N))
+    A = distance.row_stats(Z, thresh)
+    _equal_stats(distance.row_stats_asym(Z, thresh), A,
+                 "row_stats_asym vs row_stats at the main shape")
+    planes = distance.one_hot_planes(Z, q)
+    _equal_stats(distance.row_stats_e8(planes, N, thresh), A,
+                 "row_stats_sym_e8 vs row_stats at the main shape")
+    D = distance.match_counts(Z)
+    _equal_stats((D.sum(1, dtype=torch.int64).float(),
+                  ((N - D) < thresh).sum(1).float()), A,
+                 "match_counts rows vs row_stats at the main shape")
+    if not torch.equal(match_counts_library(Z, q), D):
+        raise AssertionError("the one-hot torch.matmul counts differ from "
+                             "match_counts at the main shape")
+    del D
+    log(f"[kernels] at M={M} N={N} q={q} thresh={thresh}: row_stats_asym "
+        f"(k={k}), row_stats_sym_e8 and the rows of match_counts == "
+        "row_stats")
+    ms_e = cuda_ms(lambda: distance.row_stats_asym(Z, thresh), reps=5)
+    plain_e = cuda_ms(lambda: distance.row_stats_asym_torch(Z, thresh, k),
+                      reps=3)
+    ms_f = cuda_ms(lambda: distance.row_stats_e8(planes, N, thresh), reps=5)
+    plain_f = cuda_ms(lambda: distance.row_stats_e8_torch(planes, N,
+                                                          thresh), reps=3)
+    ms_planes = cuda_ms(lambda: distance.one_hot_planes(Z, q), reps=3)
+    del planes
+    ms_d = cuda_ms(lambda: distance.match_counts(Z), reps=5)
+    plain_d = cuda_ms(lambda: distance.match_counts_torch(Z), reps=3)
+    lib_d = cuda_ms(lambda: match_counts_library(Z, q), reps=3)
+    # E: kernel A's half grid (M^2 N q int8 operations as the JAX kernel
+    # counts them); reads Z once, writes two [M] results
+    bound_e = bound(M * N + 8 * M, M * M * N * q, INT8_OPS_S)
+    # F: the same half grid over the planes, read once
+    bound_f = bound(M * planes_width(N, q) + 8 * M, M * M * N * q,
+                    INT8_OPS_S)
+    # D: the full grid; reads Z once, writes the [M, M] int32 counts
+    bound_d = bound(M * N + 4 * M * M, 2 * M * M * N * q, INT8_OPS_S)
+    popc_half = M * M / 2 * N / 4 / POPC_WORDS_S * 1e3
+    log(f"[kernels] row_stats_asym M={M} N={N} q={q} k={k}: kernel "
+        f"{ms_e:.3f} ms, plain {plain_e:.3f} ms; bound {bound_e[0]:.2f} ms "
+        f"({bound_e[1]}), popcount-pipe bound {popc_half:.2f} ms")
+    log(f"[kernels] row_stats_sym_e8 M={M} N={N} q={q} (planes "
+        f"{M * planes_width(N, q) / 1e6:.0f} MB, built in {ms_planes:.3f} "
+        f"ms): kernel {ms_f:.3f} ms, plain {plain_f:.3f} ms; bound "
+        f"{bound_f[0]:.2f} ms ({bound_f[1]})")
+    log(f"[kernels] match_counts M={M} N={N} q={q}: kernel {ms_d:.3f} ms, "
+        f"plain {plain_d:.3f} ms, one one-hot torch.matmul {lib_d:.3f} ms; "
+        f"bound {bound_d[0]:.2f} ms ({bound_d[1]}; the output alone "
+        f"{4 * M * M / HBM_BYTES_S * 1e3:.2f} ms), popcount-pipe bound "
+        f"{2 * popc_half:.2f} ms")
+    return [
+        {"name": "match_counts", "route": "cuda",
+         "source": "gaussdca_tpu_torch/csrc/match_counts.cu",
+         "replaces": "gaussdca_tpu/ops/distance.py:804",
+         "max_abs_err": err["match_counts"], "ms": ms_d,
+         "plain_ms": plain_d, "bound_ms": bound_d[0],
+         "bound_by": bound_d[1], "library_ms": lib_d},
+        {"name": "row_stats_asym", "route": "cuda",
+         "source": "gaussdca_tpu_torch/csrc/row_stats_asym.cu",
+         "replaces": "gaussdca_tpu/ops/distance.py:641",
+         "max_abs_err": err["row_stats_asym"], "ms": ms_e,
+         "plain_ms": plain_e, "bound_ms": bound_e[0],
+         "bound_by": bound_e[1], "library_ms": None},
+        {"name": "row_stats_sym_e8", "route": "cuda",
+         "source": "gaussdca_tpu_torch/csrc/row_stats_e8.cu",
+         "replaces": "gaussdca_tpu/ops/distance.py:448",
+         "max_abs_err": err["row_stats_sym_e8"], "ms": ms_f,
+         "plain_ms": plain_f, "bound_ms": bound_f[0],
+         "bound_by": bound_f[1], "library_ms": None},
+    ]
+
+
+def match_counts_library(Z, q: int):
+    """Kernel D's counts from one library call, for its ``library_ms``
+    only: a one-hot f32 ``torch.matmul`` over states 1..q with TF32 off
+    (exact while N < 2^24)."""
+    import torch
+    from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
+
+    states = torch.arange(1, q + 1, dtype=torch.uint8, device=Z.device)
+    E = (Z[:, :, None] == states).reshape(Z.shape[0], -1).float()
+    with full_f32_matmuls():
+        return (E @ E.T).to(torch.int32)
+
+
+def planes_width(N: int, q: int) -> int:
+    """Bytes of one row of one-hot planes (``one_hot_planes``)."""
+    return -(-N * q // 64) * 64
+
+
 GOLDEN = [
     ("small frob defaults", "small.fasta.gz", "small.FNRout.txt", {}, 5e-4),
     ("small DI dedup", "small.fasta.gz", "small.DIRout.txt",
@@ -414,11 +593,13 @@ def _load_golden(path):
 
 
 def phase_golden(mesh=None):
-    """The golden configs on cuda:0, or through ``mesh``."""
+    """The golden configs on cuda:0, or through ``mesh``; returns the f32
+    results by name."""
     import torch
     import gaussdca_tpu_torch as g
 
     tag = "golden" if mesh is None else "mesh golden"
+    out = {}
     for name, fa, gold, kw, f32_tol in GOLDEN:
         want = _load_golden(os.path.join(GOLDEN_DIR, gold))
         keys = sorted(want)
@@ -429,6 +610,8 @@ def phase_golden(mesh=None):
             r = g.gdca(os.path.join(GOLDEN_DIR, fa), dtype=dt,
                        device="cuda", mesh=mesh, **kw)
             wall = time.perf_counter() - t0
+            if dt == torch.float32:
+                out[name] = r
             got = {(i, j): x for i, j, x in r.ranking}
             if set(got) != set(want):
                 raise AssertionError(f"golden {name} {dt}: pair sets differ")
@@ -447,6 +630,7 @@ def phase_golden(mesh=None):
                 f"{overlap[0]}/10, top-100 {overlap[1]}/100, {wall:.2f} s")
             if not ok:
                 raise AssertionError(f"{tag} {name} {dt} failed its gate")
+    return out
 
 
 # (name, M, N, options, max abs mesh-vs-one-device score difference): the
@@ -525,7 +709,7 @@ def phase_real_size(dev, mesh=None, single=None):
                 S, _, _ = sharded_scores(
                     mesh, pad_rows(torch.as_tensor(tokens), mesh.size), cfg,
                     21, m_true=M, mark=mark)
-        api._checked_ranking(S.cpu().numpy(), cfg.min_separation)
+        api._checked_ranking(S, cfg.min_separation)
         stamps.append(("rank", time.perf_counter()))
         stages = ", ".join(f"{b[0]} {b[1] - a[1]:.3f}"
                            for a, b in zip(stamps, stamps[1:]))
@@ -534,6 +718,52 @@ def phase_real_size(dev, mesh=None, single=None):
             f"{r[0]}); stages (s): {stages}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return results
+
+
+def phase_weights(path, weights, ref):
+    """W, Meff and theta at the main shape from ``weights(dtype)``, in f32
+    and f64, each equal to ``ref[dtype]`` (kernel A's weights)."""
+    import torch
+
+    for dt in (torch.float32, torch.float64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W, Meff, th = weights(dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        W1, Meff1, th1 = ref[dt]
+        ok = (torch.equal(W, W1) and float(Meff) == float(Meff1)
+              and float(th) == float(th1))
+        log(f"[weights: {path}] M={W.shape[0]} {str(dt)[6:]}: {wall:.3f} s, "
+            f"theta {float(th):.6f}, Meff {float(Meff):.4f}; W, Meff, theta "
+            f"{'==' if ok else '!='} kernel A's")
+        if not ok:
+            raise AssertionError(f"the weights on the {path} path differ "
+                                 "from the weights on kernel A")
+
+
+def phase_top_k(golden32):
+    """The small frob golden through ``gdca(..., top_k=100)`` on the card,
+    f32: the head of the full ranking of the same call."""
+    import torch
+    import gaussdca_tpu_torch as g
+
+    name, fa, _, kw, _ = GOLDEN[0]
+    exact = golden32[name]
+    head = g.gdca(os.path.join(GOLDEN_DIR, fa), dtype=torch.float32,
+                  device="cuda", top_k=100, **kw)
+    ref = {(i, j): x for i, j, x in exact.ranking}
+    # ties at the 100th score aside
+    cut = exact.ranking[99][2]
+    sure = {p[:2] for p in exact.ranking[:100] if p[2] != cut}
+    pairs = {p[:2] for p in head.ranking}
+    diff = max(abs(x - ref[(i, j)]) for i, j, x in head.ranking)
+    log(f"[top_k] {name} f32, top_k=100: {len(head)} pairs, "
+        f"{len(pairs & sure)} of the {len(sure)} above the 100th score, max "
+        f"abs diff to the full ranking {diff:.3e} (limit 1e-6)")
+    if len(head) != 100 or not sure <= pairs or diff > 1e-6 or min(
+            x for _, _, x in head.ranking) < cut:
+        raise AssertionError("top_k is not the head of the full ranking")
 
 
 def main() -> int:
@@ -549,20 +779,26 @@ def main() -> int:
         return 1
     from gaussdca_tpu_torch.ops import di_kernel, distance
     from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from gaussdca_tpu_torch.stats import reweight
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     phase_device()
     phase_build()
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_dense_kernels(dev)
     counters = {"row_stats": distance.row_stats,
                 "row_stats_rect": distance.row_stats_rect,
-                "di_pairs": di_kernel.di_pairs}
+                "di_pairs": di_kernel.di_pairs,
+                "match_counts": distance.match_counts,
+                "row_stats_asym": distance.row_stats_asym,
+                "row_stats_sym_e8": distance.row_stats_sym_e8}
+    by_path = {}
 
-    def drive(path, needs, phases):
+    def drive(path, needs, phases, absent=()):
         """Run one main path with the counters zeroed just before it;
-        returns its launches and fails if a kernel of it never ran."""
+        records its launches and fails if a kernel of it never ran (or
+        one in ``absent`` did)."""
         for fn in counters.values():
             fn.launches = 0
         out = phases()
@@ -572,21 +808,45 @@ def main() -> int:
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} never ran on the {path} "
                                      "path")
-        return launches, out
+        for k in absent:
+            if launches[k] != 0:
+                raise AssertionError(f"kernel {k} ran on the {path} path")
+        by_path[path] = launches
+        return out
 
-    single_n, single = drive(
-        "single device", ("row_stats", "di_pairs"),
-        lambda: (phase_golden(), phase_real_size(dev))[1])
+    golden32, single = drive(
+        "single", ("row_stats", "di_pairs"),
+        lambda: (phase_golden(), phase_real_size(dev)))
     mesh = Mesh([dev] * 4, (2, 2))
-    mesh_n, _ = drive(
-        "mesh of 4 shards on cuda:0", ("row_stats_rect", "di_pairs"),
-        lambda: (phase_golden(mesh), phase_real_size(dev, mesh, single)))
+    drive("mesh", ("row_stats_rect", "di_pairs"),
+          lambda: (phase_golden(mesh), phase_real_size(dev, mesh, single)))
     if torch.cuda.device_count() > 1:
         phase_real_size(dev, make_mesh(), single)
+    drive("top_k", ("row_stats",), lambda: phase_top_k(golden32))
+
+    # the other distance kernels as the distance pass of the two weight
+    # functions at the main shape, each held against kernel A's weights
+    # (taken here, outside every counted path)
+    Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
+    ref = {dt: reweight.compute_weights_streaming(Z, "auto", 21, dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+
+    def streaming(fn):
+        return lambda dt: reweight.compute_weights_streaming(
+            Z, "auto", 21, dtype=dt, row_stats_fn=fn)
+
+    for path, kernel, weights in (
+            ("asym", "row_stats_asym", streaming(distance.row_stats_asym)),
+            ("full", "row_stats_rect", streaming(distance.row_stats_full)),
+            ("e8", "row_stats_sym_e8", streaming(functools.partial(
+                distance.row_stats_sym_e8, q=21))),
+            ("dense", "match_counts", lambda dt: reweight.compute_weights(
+                Z, "auto", q=21, dtype=dt))):
+        drive(path, (kernel,), lambda: phase_weights(path, weights, ref),
+              absent=("row_stats",))
     for k in kernels:
-        k["launches"] = single_n[k["name"]] + mesh_n[k["name"]]
-        k["launches_by_path"] = {"single": single_n[k["name"]],
-                                 "mesh": mesh_n[k["name"]]}
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,14 +6,15 @@ pseudocount -> covariance -> Cholesky inverse -> FN or DI scores -> APC ->
 min-separation ranking. The host does ingest, dedup and the final sort;
 everything in between runs on ``cfg.device`` as eager PyTorch around the
 two hand-written kernels (``ops.distance.row_stats``,
-``ops.di_kernel.di_pairs``). With ``mesh=`` the same pipeline runs
+``ops.di_kernel.di_pairs``); ``top_k`` selects the head of the ranking
+on the device. With ``mesh=`` the same pipeline runs
 sharded over a grid of devices (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -25,7 +26,8 @@ from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gaussdca_tpu_torch.score.apc import correct_apc
 from gaussdca_tpu_torch.score.di import di_score
 from gaussdca_tpu_torch.score.frob import frob_score
-from gaussdca_tpu_torch.score.rank import Ranking, compute_ranking, printrank
+from gaussdca_tpu_torch.score.rank import (Ranking, compute_ranking,
+                                           printrank, top_k_device)
 from gaussdca_tpu_torch.solve.cholesky import NOT_POSITIVE_DEFINITE, spd_inverse
 from gaussdca_tpu_torch.stats import reweight
 from gaussdca_tpu_torch.stats.frequencies import (frequency_chunk,
@@ -89,12 +91,17 @@ def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig, *,
     return S, th, meff
 
 
-def _checked_ranking(S: np.ndarray, min_separation: int) -> Ranking:
+def _checked_ranking(S: torch.Tensor, min_separation: int,
+                     top_k: Optional[int] = None) -> Ranking:
     """Rank S, refusing to emit a solver-poisoned (non-finite) ranking
-    (the reference fails with PosDefException there). A NaN anywhere
-    reaches every score through APC; a partial NaN sorts last, so the two
-    endpoint scores suffice."""
-    R = compute_ranking(S, min_separation)
+    (the reference fails with PosDefException there). ``top_k``: only the
+    k best pairs, selected where S lies. A NaN anywhere reaches every
+    score through APC; a partial NaN sorts last on the host and first in
+    ``torch.topk``, so the two endpoint scores suffice."""
+    if top_k is not None:
+        R = top_k_device(S, min_separation, top_k)
+    else:
+        R = compute_ranking(S.cpu().numpy(), min_separation)
     if R and not (np.isfinite(R[0][2]) and np.isfinite(R[-1][2])):
         raise ArithmeticError(NOT_POSITIVE_DEFINITE)
     return R
@@ -118,8 +125,12 @@ def resolve_mesh(mesh) -> Mesh:
 
 
 def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
+                  top_k: Optional[int] = None,
                   mesh: Any = None) -> GDCAResult:
     """Run the device pipeline + ranking on an already-ingested MSA.
+
+    ``top_k``: return only the k best pairs, selected on the device
+    (``torch.topk``), so the [N, N] score matrix never leaves it.
 
     ``mesh``: a ``Mesh``, a ``(dp, tp)`` shape or "auto" (every visible
     card) runs the sharded pipeline over it instead of ``cfg.device``
@@ -151,7 +162,7 @@ def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
         Z = torch.as_tensor(msa.tokens, device=cfg.resolve_device())
         with full_f32_matmuls():
             S, th, meff = scores_pipeline(Z, q, cfg)
-    R = _checked_ranking(S.cpu().numpy(), cfg.min_separation)
+    R = _checked_ranking(S, cfg.min_separation, top_k)
     return GDCAResult(
         ranking=R, M=msa.M, N=msa.N, q=q,
         theta=float(th), meff=float(meff),
@@ -171,6 +182,7 @@ def gdca(
     remove_dups: bool = False,
     dtype: Any = torch.float32,
     device: Any = "cuda",
+    top_k: Optional[int] = None,
     mesh: Any = None,
 ) -> GDCAResult:
     """Contact-prediction ranking of an MSA file.
@@ -178,11 +190,11 @@ def gdca(
     Same keyword names, defaults and validation as the reference ``gDCA``
     and ``gaussdca_tpu.gdca``; ``dtype`` (float32 or float64) and
     ``device`` (default "cuda"; a CPU device runs every kernel's plain
-    PyTorch version) choose where and how it runs; ``mesh`` (see
-    ``gdca_from_msa``) shards the run over several devices. Returns a
-    GDCAResult:
-    1-based (i, j, score) triples sorted by descending score, plus run
-    metadata.
+    PyTorch version) choose where and how it runs; ``top_k`` returns only
+    the k best pairs, selected on the device, and ``mesh`` shards the run
+    over several devices (see ``gdca_from_msa`` for both). Returns a
+    GDCAResult: 1-based (i, j, score) triples sorted by descending score,
+    plus run metadata.
     """
     cfg = GDCAConfig(
         pseudocount=pseudocount, theta=theta,
@@ -191,7 +203,7 @@ def gdca(
         dtype=dtype, device=device,
     )
     msa = fasta.read_fasta_alignment(filename, cfg.max_gap_fraction)
-    return gdca_from_msa(msa, cfg, mesh=mesh)
+    return gdca_from_msa(msa, cfg, top_k=top_k, mesh=mesh)
 
 
 __all__ = ["gdca", "gdca_from_msa", "printrank", "resolve_mesh", "Mesh",

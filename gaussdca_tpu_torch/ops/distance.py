@@ -24,6 +24,22 @@ launches kernel C, ``csrc/row_stats_rect.cu`` (the same packed compare
 over the full rectangular tile grid); on a CPU tensor it runs
 ``row_stats_rect_torch``. ``row_stats_full(Z, t)`` is ``row_stats_rect(Z,
 Z, t)``, the port of the full-grid ``row_stats_pallas``.
+
+Three more kernels port the JAX package's other distance kernels:
+
+- ``match_counts(Z)``: the dense [M, M] int32 identity counts of
+  ``match_counts_pallas`` (kernel D, ``csrc/match_counts.cu``: the packed
+  compare over the full tile grid, each tile written out); plain version
+  ``match_counts_torch``.
+- ``row_stats_asym(Z, thresh)``: ``row_stats`` by the grouped-row
+  covering of ``row_stats_asym_pallas`` (kernel E,
+  ``csrc/row_stats_asym.cu``; ``plan_asym`` picks the group size against
+  shared memory, and a width with no plan takes ``row_stats``); plain
+  version ``row_stats_asym_torch``, which walks the same covering.
+- ``row_stats_sym_e8(Z, thresh, q)``: ``row_stats`` from one-hot planes
+  (``one_hot_planes``) on the int8 tensor cores, the port of
+  ``row_stats_sym_e8_pallas`` (kernel F, ``csrc/row_stats_e8.cu``); plain
+  version ``row_stats_e8_torch`` on the same planes.
 """
 
 from __future__ import annotations
@@ -36,6 +52,15 @@ from gaussdca_tpu_torch.ops import _build
 
 # the kernel stages 16 words of 4 tokens per step: pad N to a multiple
 _TOKEN_ALIGN = 64
+# kernel E's fine tile (rows) and its shared-memory budget a block: half of
+# an H100 SM's 228 KB less the static and reserved bytes, so two blocks
+# share an SM
+_ASYM_TILE = 64
+_ASYM_SMEM_BUDGET = 233472 // 2 - 2048
+# kernel E's blocks per SM to aim at when a group's window is split
+_ASYM_BLOCKS_PER_SM = 4
+# kernel F walks the plane depth 64 bytes a stage: pad K to a multiple
+_E8_DEPTH = 64
 
 
 def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
@@ -57,16 +82,10 @@ def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
     if Ma == 0 or Mb == 0:
         return rowsum, below
     q = max(int(ZA.max()), int(ZB.max()))
-    states = torch.arange(1, q + 1, dtype=ZA.dtype, device=ZA.device)
-
-    def one_hot(Z):
-        return (Z[:, :, None] == states).reshape(Z.shape[0], N * q).to(
-            torch.float32)
-
-    EB = one_hot(ZB)
+    EB = _one_hot(ZB, q, torch.float32)
     th = float(thresh)
     for r0 in range(0, Ma, row_chunk):
-        D = one_hot(ZA[r0:r0 + row_chunk]) @ EB.T       # [chunk, Mb]
+        D = _one_hot(ZA[r0:r0 + row_chunk], q, torch.float32) @ EB.T
         rowsum[r0:r0 + row_chunk] = D.sum(1, dtype=torch.float64).float()
         below[r0:r0 + row_chunk] = ((n - D) < th).sum(1).float()
     return rowsum, below
@@ -196,5 +215,242 @@ row_stats_rect.launches = 0
 def row_stats_full(Z: torch.Tensor, thresh):
     """The full-grid square row stats (the port of ``row_stats_pallas``):
     ``row_stats_rect(Z, Z, ...)``, the same result as ``row_stats`` for
-    twice its tile pairs. No pipeline path calls it."""
+    twice its tile pairs. No pipeline path calls it: a caller passes it
+    as ``row_stats_fn``."""
     return row_stats_rect(Z, Z, thresh)
+
+
+def _one_hot(Z: torch.Tensor, q: int, dtype) -> torch.Tensor:
+    """[M, N q] one-hot over states 1..q, position-major (column n q + c
+    - 1 is state c at position n); token 0 gives a zero segment."""
+    M, N = Z.shape
+    states = torch.arange(1, q + 1, dtype=torch.uint8, device=Z.device)
+    return (Z.view(torch.uint8)[:, :, None] == states).reshape(
+        M, N * q).to(dtype)
+
+
+# --- kernel D: dense identity counts ------------------------------------
+
+def match_counts_torch(Z: torch.Tensor, *, row_chunk: int = 4096
+                       ) -> torch.Tensor:
+    """Plain PyTorch ``match_counts``: a row-chunked one-hot f32 product,
+    exact (0/1 products summed in f32 while N < 2^24)."""
+    M = Z.shape[0]
+    out = torch.empty((M, M), dtype=torch.int32, device=Z.device)
+    if M == 0:
+        return out
+    E = _one_hot(Z, max(int(Z.max()), 1), torch.float32)
+    for r0 in range(0, M, row_chunk):
+        out[r0:r0 + row_chunk] = (E[r0:r0 + row_chunk] @ E.T).to(torch.int32)
+    return out
+
+
+def match_counts(Z: torch.Tensor) -> torch.Tensor:
+    """[M, M] int32: ``out[a, b] = matches(a, b)`` of token matrix Z
+    (uint8 or int8, states 0..31; token 0 matches nothing). CPU tensors
+    take ``match_counts_torch``; CUDA tensors launch kernel D (build and
+    launch errors raise)."""
+    _check_tokens("match_counts", Z)
+    if Z.device.type == "cpu":
+        return match_counts_torch(Z)
+    M = Z.shape[0]
+    out = torch.empty((M, M), dtype=torch.int32, device=Z.device)
+    if M == 0:
+        return out
+    words = pack_tokens(Z)
+    fn = _lib("match_counts", "gdca_match_counts", [_P, _I, _I, _P, _P])
+    with torch.cuda.device(Z.device):
+        err = fn(words.data_ptr(), M, words.shape[1], out.data_ptr(),
+                 torch.cuda.current_stream(Z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"match_counts kernel launch failed: CUDA error {err}")
+    match_counts.launches += 1
+    return out
+
+
+match_counts.launches = 0
+
+
+# --- kernel E: grouped-row row statistics --------------------------------
+
+def plan_asym(N: int) -> int:
+    """Kernel E's group size k for token width N: the largest k in 4, 3,
+    2 whose k resident row tiles and one B tile of packed words fit the
+    shared-memory budget, else 1 (no plan: ``row_stats_asym`` takes
+    ``row_stats``), as ``_plan_asym`` plans against VMEM."""
+    W = max(_TOKEN_ALIGN, -(-N // _TOKEN_ALIGN) * _TOKEN_ALIGN) // 4
+    for k in (4, 3, 2):
+        if (k + 1) * _ASYM_TILE * (W + 1) * 4 <= _ASYM_SMEM_BUDGET:
+            return k
+    return 1
+
+
+def _asym_cover(M: int, k: int, tile: int):
+    """(T, J): fine tiles of the padded rows (a multiple of k) and window
+    steps of the grouped covering."""
+    T = -(-M // (k * tile)) * k
+    return T, T // 2 + k
+
+
+def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, *,
+                         tile: int = _ASYM_TILE):
+    """Plain PyTorch ``row_stats_asym``: kernel E's covering walked step by
+    step. Group g holds fine tiles alpha = g k + r; step jp pairs them
+    with tile beta = (g k + jp) mod T, and sub-tile r counts the pair iff
+    d = jp - r is in [0, T // 2] (d = T / 2 for even T only when alpha <
+    T / 2): every unordered tile pair once, the diagonal toward its rows
+    only. Each step is one batched one-hot f32 product over the groups;
+    sums in f64, so the counts are exact."""
+    M, N = Z.shape
+    if M == 0:
+        return (torch.zeros(0, dtype=torch.float32, device=Z.device),) * 2
+    dev = Z.device
+    T, J = _asym_cover(M, k, tile)
+    G, Mp = T // k, T * tile
+    Zp = torch.zeros((Mp, N), dtype=torch.uint8, device=dev)
+    Zp[:M] = Z.view(torch.uint8)
+    E = _one_hot(Zp, max(int(Z.max()), 1), torch.float32)
+    EA = E.view(G, k * tile, -1)
+    EB = E.view(T, tile, -1)
+    valid = torch.arange(Mp, device=dev) < M
+    rs = torch.zeros(Mp, dtype=torch.float64, device=dev)
+    bl = torch.zeros(Mp, dtype=torch.float64, device=dev)
+    gk = torch.arange(G, device=dev) * k
+    r = torch.arange(k, device=dev)
+    alpha = gk[:, None] + r                                     # [G, k]
+    rows_ok = valid.view(G, k * tile)
+    th = float(thresh)
+    for jp in range(J):
+        d = jp - r
+        live = ((d >= 0) & (d <= T // 2))[None, :] & ~(
+            (2 * d == T)[None, :] & (alpha >= T // 2))          # [G, k]
+        if not bool(live.any()):
+            continue
+        beta = (gk + jp) % T
+        D = EA @ EB[beta].transpose(1, 2)                       # [G, k t, t]
+        cols = beta[:, None] * tile + torch.arange(tile, device=dev)
+        mask = ((live.repeat_interleave(tile, 1) & rows_ok)[:, :, None]
+                & valid[cols][:, None, :])
+        near = ((N - D) < th) & mask
+        Dm = D * mask
+        rs += Dm.sum(2, dtype=torch.float64).view(-1)
+        bl += near.sum(2, dtype=torch.float64).view(-1)
+        col = (live & (d != 0)[None, :]).repeat_interleave(tile, 1)
+        rs.index_add_(0, cols.reshape(-1),
+                      (Dm * col[:, :, None]).sum(1, dtype=torch.float64)
+                      .reshape(-1))
+        bl.index_add_(0, cols.reshape(-1),
+                      (near & col[:, :, None]).sum(1, dtype=torch.float64)
+                      .reshape(-1))
+    return rs[:M].float(), bl[:M].float()
+
+
+def row_stats_asym(Z: torch.Tensor, thresh):
+    """``row_stats`` by kernel E's grouped-row covering: the same (rowsum,
+    below). A width with no plan (``plan_asym`` gives 1) takes
+    ``row_stats`` (kernel A on a card, counted there). CPU tensors take
+    ``row_stats_asym_torch``; CUDA tensors launch kernel E (build and
+    launch errors raise)."""
+    _check_tokens("row_stats_asym", Z)
+    M, N = Z.shape
+    k = plan_asym(N)
+    if k < 2:
+        return row_stats(Z, thresh)
+    if Z.device.type == "cpu":
+        return row_stats_asym_torch(Z, thresh, k)
+    rowsum = torch.zeros(M, dtype=torch.int64, device=Z.device)
+    below = torch.zeros(M, dtype=torch.int64, device=Z.device)
+    if M == 0:
+        return rowsum.float(), below.float()
+    words = pack_tokens(Z)
+    T, J = _asym_cover(M, k, _ASYM_TILE)
+    sms = torch.cuda.get_device_properties(Z.device).multi_processor_count
+    chunks = max(1, min(J, -(-_ASYM_BLOCKS_PER_SM * sms // (T // k))))
+    fn = _lib("row_stats_asym", "gdca_row_stats_asym",
+              [_P, _I, _I, _I, _F, _I, _I, _P, _P, _P])
+    with torch.cuda.device(Z.device):
+        err = fn(words.data_ptr(), M, words.shape[1], N, float(thresh), k,
+                 chunks, rowsum.data_ptr(), below.data_ptr(),
+                 torch.cuda.current_stream(Z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"row_stats_asym kernel launch failed: CUDA error {err}")
+    row_stats_asym.launches += 1
+    return rowsum.to(torch.float32), below.to(torch.float32)
+
+
+row_stats_asym.launches = 0
+
+
+# --- kernel F: row statistics from one-hot planes ------------------------
+
+def one_hot_planes(Z: torch.Tensor, q: int) -> torch.Tensor:
+    """E8 [M, K] int8 on Z's device: E8[a, n q + c - 1] = 1 iff Z[a, n] =
+    c (c = 1..q, position-major; token 0 gives a zero segment), K = N q
+    zero-padded to a multiple of 64, the depth kernel F walks."""
+    M, N = Z.shape
+    K = N * q
+    Kp = max(_E8_DEPTH, -(-K // _E8_DEPTH) * _E8_DEPTH)
+    E8 = torch.zeros((M, Kp), dtype=torch.int8, device=Z.device)
+    E8[:, :K] = _one_hot(Z, q, torch.int8)
+    return E8
+
+
+def row_stats_e8_torch(E8: torch.Tensor, n_true: int, thresh, *,
+                       row_chunk: int = 4096):
+    """Plain PyTorch ``row_stats_e8``: row-chunked f32 products of the
+    planes; exact, as ``row_stats_rect_torch``."""
+    M = E8.shape[0]
+    rowsum = torch.zeros(M, dtype=torch.float32, device=E8.device)
+    below = torch.zeros(M, dtype=torch.float32, device=E8.device)
+    Ef = E8.to(torch.float32)
+    th = float(thresh)
+    for r0 in range(0, M, row_chunk):
+        D = Ef[r0:r0 + row_chunk] @ Ef.T
+        rowsum[r0:r0 + row_chunk] = D.sum(1, dtype=torch.float64).float()
+        below[r0:r0 + row_chunk] = ((n_true - D) < th).sum(1).float()
+    return rowsum, below
+
+
+def row_stats_e8(E8: torch.Tensor, n_true: int, thresh):
+    """(rowsum [M], below [M]) f32 from one-hot planes E8 [M, K] int8
+    (``one_hot_planes``) over token width ``n_true``. CPU tensors take
+    ``row_stats_e8_torch``; CUDA tensors launch kernel F (build and launch
+    errors raise; counted on ``row_stats_sym_e8``)."""
+    if (E8.dim() != 2 or E8.dtype != torch.int8
+            or E8.shape[1] % _E8_DEPTH != 0 or E8.shape[1] == 0):
+        raise ValueError(
+            "row_stats_e8: expected int8 planes [M, K] with K a positive "
+            f"multiple of {_E8_DEPTH}, got {E8.dtype} {tuple(E8.shape)}")
+    if E8.device.type == "cpu":
+        return row_stats_e8_torch(E8, n_true, thresh)
+    if E8.device.type != "cuda":
+        raise ValueError(f"row_stats_e8: unsupported device {E8.device}")
+    E8 = E8.contiguous()
+    M, K = E8.shape
+    rowsum = torch.zeros(M, dtype=torch.int64, device=E8.device)
+    below = torch.zeros(M, dtype=torch.int64, device=E8.device)
+    if M:
+        fn = _lib("row_stats_e8", "gdca_row_stats_e8",
+                  [_P, _I, _I, _I, _F, _P, _P, _P])
+        with torch.cuda.device(E8.device):
+            err = fn(E8.data_ptr(), M, K, int(n_true), float(thresh),
+                     rowsum.data_ptr(), below.data_ptr(),
+                     torch.cuda.current_stream(E8.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"row_stats_e8 kernel launch failed: CUDA error {err}")
+        row_stats_sym_e8.launches += 1
+    return rowsum.to(torch.float32), below.to(torch.float32)
+
+
+def row_stats_sym_e8(Z: torch.Tensor, thresh, q: int):
+    """``row_stats`` from the one-hot planes of Z over states 1..q (tokens
+    above q match nothing, as in ``row_stats_sym_e8_pallas``): the port
+    of that kernel, which no pipeline path calls."""
+    _check_tokens("row_stats_sym_e8", Z)
+    return row_stats_e8(one_hot_planes(Z, q), Z.shape[1], thresh)
+
+
+row_stats_sym_e8.launches = 0

@@ -12,8 +12,10 @@ src/GaussDCA.jl:88-99) and ``printrank`` (src/GaussDCA.jl:67-74):
 
 The sort runs on the host over the gathered score vector: it is O(P log P)
 on ~1e4-1e6 pairs, negligible next to the device stages, and the output is
-a host-side list anyway. NumPy only, the same code as
-``gaussdca_tpu.score.rank``.
+a host-side list anyway (NumPy, the same code as
+``gaussdca_tpu.score.rank``). ``top_k_device`` selects only the head of
+the ranking where S lies (``torch.topk``), so only 3k numbers reach the
+host.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import List, Tuple, Union, IO
 
 import numpy as np
+import torch
 
 Ranking = List[Tuple[int, int, float]]
 
@@ -41,6 +44,29 @@ def compute_ranking(S: np.ndarray, min_separation: int) -> Ranking:
     scores = S[jj - 1, ii - 1]
     order = np.argsort(-scores, kind="stable")
     return [(int(ii[k]), int(jj[k]), float(scores[k])) for k in order]
+
+
+def top_k_device(S: torch.Tensor, min_separation: int, k: int) -> Ranking:
+    """Top-k ranked pairs selected on S's device (``torch.topk``). Ties
+    may resolve differently from the host sort (both match the
+    reference's unspecified tie order)."""
+    N = S.shape[0]
+    m = min_separation
+    # t clamps at 0 so min_separation > N yields an empty ranking, as
+    # compute_ranking does
+    t = max(0, N - m)
+    k = int(min(k, t * (t + 1) // 2))
+    if k == 0:
+        return []
+    # the ranked region j >= i + m, read from the lower triangle S[j, i]
+    rows = torch.arange(N, device=S.device)[:, None]
+    cols = torch.arange(N, device=S.device)[None, :]
+    flat = torch.where(cols >= rows + m, S.T, float("-inf")).reshape(-1)
+    vals, idx = torch.topk(flat, k)
+    ii = (idx // N + 1).cpu().numpy()
+    jj = (idx % N + 1).cpu().numpy()
+    v = vals.cpu().numpy()
+    return [(int(a), int(b), float(x)) for a, b, x in zip(ii, jj, v)]
 
 
 def format_rank(R: Ranking) -> str:

@@ -17,6 +17,12 @@ the Hopper kernel on a CUDA tensor, its plain version on the CPU); only
 O(M) state is kept. ``m_true`` is the unpadded row count when Z carries
 token-0 padding rows (the mesh path pads M to a multiple of its shard
 count): they leave the auto-theta pair count, W and Meff.
+
+``compute_weights`` is the dense path of ``gaussdca_tpu.stats.reweight``:
+the [M, M] identity counts from ``match_counts_fn`` (default
+``ops.distance.match_counts``: kernel D on a CUDA tensor, its plain
+version on the CPU), then ``weights_from_matches``; the same W, Meff and
+theta as the streaming path, for O(M^2) memory.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from gaussdca_tpu_torch.ops.distance import row_stats
+from gaussdca_tpu_torch.ops.distance import match_counts, row_stats
 
 AUTO_THETA_COEFF = 0.38 * 0.32  # = 0.1216, the reference's auto-theta constant
 
@@ -56,6 +62,15 @@ def auto_theta_closed_form(Z: torch.Tensor, q: int,
                          AUTO_THETA_COEFF / mfi)
 
 
+def _resolve_theta(Z: torch.Tensor, theta: Union[str, float], q: int,
+                   m_true: Optional[int], dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(theta, str):
+        if theta != "auto":
+            raise ValueError(f"invalid theta: {theta}")
+        theta = auto_theta_closed_form(Z, q, m_true)
+    return torch.as_tensor(theta, dtype=torch.float64).to(dtype)
+
+
 def compute_weights_streaming(
     Z: torch.Tensor,
     theta: Union[str, float],
@@ -70,11 +85,7 @@ def compute_weights_streaming(
     ``row_stats_fn(Z, thresh) -> (rowsum, below)`` defaults to
     ``row_stats``; rows at or past ``m_true`` get weight 0."""
     M, N = Z.shape
-    if isinstance(theta, str):
-        if theta != "auto":
-            raise ValueError(f"invalid theta: {theta}")
-        theta = auto_theta_closed_form(Z, q, m_true)
-    th = torch.as_tensor(theta, dtype=torch.float64).to(dtype)
+    th = _resolve_theta(Z, theta, q, m_true, dtype)
     thresh = torch.floor(th * N)
     _, below = (row_stats_fn or row_stats)(Z, thresh.to(torch.float32))
     self_match = 1.0 if bool(thresh > 0) else 0.0
@@ -83,3 +94,43 @@ def compute_weights_streaming(
     if m_true is not None:
         W = W * (torch.arange(M, device=W.device) < m_true).to(dtype)
     return W, W.sum(), th
+
+
+def weights_from_matches(D: torch.Tensor, N: int, theta,
+                         dtype: torch.dtype = torch.float64, *,
+                         row_chunk: int = 4096
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W, Meff) from the identity-count matrix D [M, M]: hamming(a, b) =
+    N - D[a, b], neighbour iff hamming < floor(theta N), self excluded,
+    W = 1 / (1 + neighbours). Counted ``row_chunk`` rows at a time, so
+    the f64 hamming never exists for all of D at once."""
+    thresh = torch.floor(torch.as_tensor(theta, dtype=dtype) * N)
+    limit = thresh.to(D.device)
+    M = D.shape[0]
+    below = torch.empty(M, dtype=dtype, device=D.device)
+    for r0 in range(0, M, row_chunk):
+        ham = (N - D[r0:r0 + row_chunk]).to(dtype)
+        below[r0:r0 + row_chunk] = (ham < limit).sum(1, dtype=dtype)
+    # the diagonal (hamming 0) counts iff thresh > 0; clamp at 0: token-0
+    # rows match nothing, not even themselves
+    below = torch.clamp(below - (1.0 if bool(thresh > 0) else 0.0), min=0.0)
+    W = 1.0 / (1.0 + below)
+    return W, W.sum()
+
+
+def compute_weights(
+    Z: torch.Tensor,
+    theta: Union[str, float],
+    *,
+    dtype: torch.dtype = torch.float64,
+    match_counts_fn: Optional[Callable] = None,
+    q: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(W [M], Meff, resolved theta) through the [M, M] count matrix.
+    ``match_counts_fn(Z) -> [M, M]`` defaults to ``match_counts``;
+    auto-theta comes from the streaming path's closed form (``q=None``
+    scans the full 1..31 state range)."""
+    counts = (match_counts_fn or match_counts)(Z)
+    th = _resolve_theta(Z, theta, q or 31, None, dtype)
+    W, Meff = weights_from_matches(counts, Z.shape[1], th, dtype)
+    return W, Meff, th

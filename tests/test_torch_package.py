@@ -55,6 +55,14 @@ def test_import_and_cpu_run_load_no_jax():
         "    cfg = g.GDCAConfig(score=score, device='cpu', solve_min_dim=8)\n"
         "    g.gdca_from_msa(msa, cfg)\n"
         "    g.gdca_from_msa(msa, cfg, mesh=mesh)\n"
+        "g.gdca_from_msa(msa, cfg, top_k=5)\n"
+        "from gaussdca_tpu_torch.ops import distance\n"
+        "from gaussdca_tpu_torch.stats import reweight\n"
+        "Zt = torch.as_tensor(Z)\n"
+        "reweight.compute_weights(Zt, 'auto', q=4)\n"
+        "distance.row_stats_asym(Zt, 3.0)\n"
+        "distance.row_stats_full(Zt, 3.0)\n"
+        "distance.row_stats_sym_e8(Zt, 3.0, 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'gaussdca_tpu')]\n"
         "assert not bad, bad\n")
@@ -117,12 +125,36 @@ def test_pipeline_restores_tf32_flags():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+@pytest.mark.parametrize("name,call", [
+    ("match_counts", lambda Z: distance.match_counts(Z)),
+    ("row_stats_asym", lambda Z: distance.row_stats_asym(Z, 4.0)),
+    ("row_stats_sym_e8", lambda Z: distance.row_stats_sym_e8(Z, 4.0, 7)),
+])
+def test_new_kernels_take_plain_versions_on_the_cpu(monkeypatch, name,
+                                                    call):
+    """Kernels D, E and F on a CPU tensor: no build, no launch."""
+    def no_compiler(*args, **kwargs):
+        raise AssertionError("a CPU tensor must not build CUDA kernels")
+
+    monkeypatch.setattr(_build, "build", no_compiler)
+    wrapper = getattr(distance, name)
+    before = wrapper.launches
+    Z = torch.as_tensor(_small_msa().tokens)
+    out = call(Z)
+    assert wrapper.launches == before == 0
+    assert all(torch.isfinite(x.float()).all()
+               for x in (out if isinstance(out, tuple) else (out,)))
+
+
 def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     """The library name follows the source's content, and a machine
     without nvcc gets a clear error instead of a fallback."""
     a = _build.library_path("row_stats")
     b = _build.library_path("di_pairs")
     assert a != b and a.startswith(_build.BUILD_DIR)
+    names = ("row_stats", "row_stats_rect", "di_pairs", "match_counts",
+             "row_stats_asym", "row_stats_e8")
+    assert len({_build.library_path(n) for n in names}) == len(names)
     assert a == _build.library_path("row_stats")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
