@@ -11,11 +11,14 @@ prints no result line):
 2. build: the six CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
    nvcc, one compiler process each, all started together;
 3. kernels vs their plain PyTorch versions on the card: row statistics
-   (kernel A, exact equality) at four shapes; rectangular row statistics
+   (kernel A, exact equality) at four shapes, each at q = 9, 21 and 31;
+   rectangular row statistics
    (kernel C, exact) at four shapes, including a row block with token-0
    pad rows, and equal to kernel A on (Z, Z); per-pair DI (kernel B) at
    s = 8, 20, 30 on blocks from real pipelines, on the whole coupling
-   matrix and on a row slab (f32 max abs <= 1e-5, f64 <= 1e-10), and at
+   matrix and on a row slab (f32 max abs <= 1e-5, f64 <= 1e-10, the slab
+   bitwise equal to the whole), the same at a full and a ragged s of
+   every padded size the kernel dispatches on (``DI_SWEEP``), and at
    the DI family's N=1000, s=20 on the whole matrix and on each shard's
    row slab and anchored pairs of the 4-shard mesh (f32 <= 1e-5); the
    dense counts (kernel D), the grouped-row row statistics (kernel E)
@@ -62,7 +65,6 @@ device: exit 1, no result.
 from __future__ import annotations
 
 import concurrent.futures
-import functools
 import json
 import os
 import statistics
@@ -134,6 +136,11 @@ def phase_device():
 
 KERNELS = ("row_stats", "row_stats_rect", "di_pairs", "match_counts",
            "row_stats_asym", "row_stats_e8")
+# kernel A's state counts checked at every shape; 31 (every state) last
+A_STATES = (9, 21, 31)
+# kernel B's s values: a full and a ragged s for each padded size S =
+# 4, 8, ..., 32 that the kernel dispatches on (s = 1 too)
+DI_SWEEP = (1, 3, 4, 6, 8, 10, 12, 13, 16, 19, 20, 21, 24, 27, 28, 29, 30)
 
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense) for the bounds
 HBM_BYTES_S = 3.35e12
@@ -163,10 +170,13 @@ def phase_build():
         _build.library(name)
         log(f"[build] {name}: {secs:.1f} s -> "
             f"{os.path.relpath(path, REPO)}")
+        kernel = "?"
         with open(path[:-3] + ".log") as fh:
             for line in fh:
-                if "registers" in line or "spill" in line:
-                    log(f"[build]   {line.strip()}")
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]    # ptxas's mangled name
+                elif "registers" in line or "spill" in line:
+                    log(f"[build]   {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 def _covariance(tokens: np.ndarray, q: int, *, pc: float, theta, device):
@@ -230,30 +240,36 @@ def phase_kernels(dev):
         th_auto = float(reweight.auto_theta_closed_form(Zt, q))
         for theta in (0.0, 0.2, th_auto):
             thresh = float(np.float32(np.floor(theta * N)))
-            got = distance.row_stats(Zt, thresh)
-            want = distance.row_stats_torch(Zt, thresh)
-            torch.cuda.synchronize()
-            for g, w, what in zip(got, want, ("rowsum", "below")):
-                if not torch.equal(g, w):
-                    bad = int((g != w).sum())
-                    raise AssertionError(
-                        f"row_stats {what} differs from its plain version "
-                        f"at M={M} N={N} q={q} thresh={thresh}: {bad} rows")
-                err_a = max(err_a, float((g - w).abs().max()))
-            if pad and (got[0][-pad:].any() or got[1][-pad:].any()):
-                raise AssertionError("token-0 rows must score 0")
+            # the state loop at q = 9 (tokens above it match nothing), 21
+            # and 31 (every state)
+            for qk in A_STATES:
+                got = distance.row_stats(Zt, thresh, qk)
+                want = distance.row_stats_torch(Zt, thresh, qk)
+                torch.cuda.synchronize()
+                for g, w, what in zip(got, want, ("rowsum", "below")):
+                    if not torch.equal(g, w):
+                        bad = int((g != w).sum())
+                        raise AssertionError(
+                            f"row_stats {what} differs from its plain "
+                            f"version at M={M} N={N} tokens 1..{q} q={qk} "
+                            f"thresh={thresh}: {bad} rows")
+                    err_a = max(err_a, float((g - w).abs().max()))
+                if pad and (got[0][-pad:].any() or got[1][-pad:].any()):
+                    raise AssertionError("token-0 rows must score 0")
             rect, err = _rect_check(
                 ZA, Zt, thresh, f"Ma={ZA.shape[0]} Mb={Zt.shape[0]} N={N}")
             err_c = max(err_c, err)
             if pad and (rect[0][-pad:].any() or rect[1][-pad:].any()):
                 raise AssertionError("token-0 rows must score 0 (rect)")
-            # the B4 contract: full-grid rect on (Z, Z) is kernel A
+            # the B4 contract: full-grid rect on (Z, Z) is kernel A over
+            # every state (``got`` is the q = 31 run)
             full = distance.row_stats_full(Zt, thresh)
             if not all(torch.equal(x, y) for x, y in zip(full, got)):
                 raise AssertionError(
                     f"row_stats_rect(Z, Z) != row_stats(Z) at M={M} N={N}")
-        log(f"[kernels] row_stats == plain at M={M} N={N} q={q} "
-            f"(+{pad} token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f}; "
+        log(f"[kernels] row_stats == plain at M={M} N={N} tokens 1..{q} "
+            f"(+{pad} token-0 rows), q {' / '.join(map(str, A_STATES))}, "
+            f"theta 0 / 0.2 / auto={th_auto:.4f}; "
             f"row_stats_rect == plain at Ma={ZA.shape[0]} "
             f"({'rows %d:%d' % rows if rows else 'unrelated A'}), "
             "and == row_stats on (Z, Z)")
@@ -310,6 +326,47 @@ def phase_kernels(dev):
                 raise AssertionError("di_pairs on a slab != on the whole "
                                      f"matrix ({what}, {dt})")
 
+    # --- kernel B: every padded size S (s rounded up to a multiple of 4)
+    # the kernel dispatches on, at a full and a ragged s each, small P
+    for s in DI_SWEEP:
+        q = s + 1
+        mJ, C = _covariance(family_tokens(240, 24, q, seed=100 + s), q,
+                            pc=0.2, theta="auto", device=dev)
+        Ls = site_cholesky(C, q).contiguous()
+        N = Ls.shape[0]
+        iu, ju = (torch.as_tensor(x, device=dev)
+                  for x in np.triu_indices(N, k=1))
+        r0, r1 = N // 3, N // 3 + 5
+        si = torch.arange(r0, r1, device=dev).repeat_interleave(N)
+        sj = torch.arange(N, device=dev).repeat(r1 - r0)
+        keep = si != sj
+        si, sj = si[keep], sj[keep]
+        errs = []
+        for dt in (torch.float64, torch.float32):
+            a, b = mJ.to(dt), Ls.to(dt)
+            slab = a[r0 * s:r1 * s]
+            for args, kw in (((a, b, iu, ju), {}),
+                             ((slab, b, si, sj), {"row0": r0})):
+                got = di_kernel.di_pairs(*args, **kw)
+                want = di_kernel.di_pairs_torch(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not (np.isfinite(err) and err <= tol[dt]):
+                    raise AssertionError(
+                        f"di_pairs differs from its plain version at s={s} "
+                        f"({'slab' if kw else 'whole'}, {dt}): max abs "
+                        f"{err} > {tol[dt]}")
+                err_b[dt] = max(err_b[dt], err)
+                errs.append(err)
+            if not torch.equal(di_kernel.di_pairs(a, b, si, sj),
+                               di_kernel.di_pairs(slab, b, si, sj, row0=r0)):
+                raise AssertionError("di_pairs on a slab != on the whole "
+                                     f"matrix (s={s}, {dt})")
+        log(f"[kernels] di_pairs vs plain at s={s} (S={-(-s // 4) * 4}), "
+            f"N={N}: whole / slab max abs f64 {errs[0]:.2e} / "
+            f"{errs[1]:.2e}, f32 {errs[2]:.2e} / {errs[3]:.2e}; slab == "
+            "whole")
+
     # --- main-path shapes: times (f32 pipeline dtype)
     Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
     M, N = Z.shape
@@ -351,6 +408,10 @@ def phase_kernels(dev):
     Ls = site_cholesky(C, 21).contiguous().float()
     mJ = mJ.float()
     del C
+    # the solve hands mJ on row-major: di_pairs reads it with no copy
+    if not mJ.is_contiguous():
+        raise AssertionError(f"spd_inverse gave a strided mJ "
+                             f"{tuple(mJ.stride())}: di_pairs would copy it")
     N, s = Ls.shape[0], 20
     iu, ju = (torch.as_tensor(x, device=dev)
               for x in np.triu_indices(N, k=1))
@@ -390,9 +451,16 @@ def phase_kernels(dev):
     bound_b = bound(P * (3 * s * s + 5) * 4,
                     P * (products * 2 * s ** 3 + 2 * s ** 3 / 3),
                     F32_FLOPS_S)
+    # the same values laid out column-major, as cuSOLVER writes the
+    # inverse: the wrapper then copies mJ before its launch
+    mJ_cm = mJ.T.contiguous().T
+    ms_b_cm = cuda_ms(lambda: di_kernel.di_pairs(mJ_cm, Ls, iu, ju), reps=3)
+    copy_ms = cuda_ms(lambda: mJ_cm.contiguous(), reps=3)
+    del mJ_cm
     log(f"[kernels] di_pairs N={N} s={s} P={P} f32: kernel "
         f"{ms_b:.3f} ms, plain {plain_b:.3f} ms; bound {bound_b[0]:.2f} ms"
-        f" ({bound_b[1]})")
+        f" ({bound_b[1]}); on a column-major mJ {ms_b_cm:.3f} ms, of which "
+        f"the wrapper's copy {copy_ms:.3f} ms")
     return [
         {"name": "row_stats", "route": "cuda",
          "source": "gaussdca_tpu_torch/csrc/row_stats.cu",
@@ -457,7 +525,7 @@ def phase_dense_kernels(dev):
         for theta in (0.0, 0.2, th_auto, 0.7):
             thresh = float(np.float32(np.floor(theta * N)))
             what = f"M={M + pad} N={N} q={q} thresh={thresh}"
-            A = distance.row_stats(Zt, thresh)
+            A = distance.row_stats(Zt, thresh, q)
             E = distance.row_stats_asym(Zt, thresh)
             F = distance.row_stats_e8(planes, N, thresh)
             err["row_stats_asym"] = max(err["row_stats_asym"], _equal_stats(
@@ -838,8 +906,7 @@ def main() -> int:
     for path, kernel, weights in (
             ("asym", "row_stats_asym", streaming(distance.row_stats_asym)),
             ("full", "row_stats_rect", streaming(distance.row_stats_full)),
-            ("e8", "row_stats_sym_e8", streaming(functools.partial(
-                distance.row_stats_sym_e8, q=21))),
+            ("e8", "row_stats_sym_e8", streaming(distance.row_stats_sym_e8)),
             ("dense", "match_counts", lambda dt: reweight.compute_weights(
                 Z, "auto", q=21, dtype=dt))):
         drive(path, (kernel,), lambda: phase_weights(path, weights, ref),

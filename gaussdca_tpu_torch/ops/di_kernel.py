@@ -8,10 +8,12 @@ root for a fixed number of steps, then 1/2 logdet((I + sqrt G) / 2) by
 unpivoted elimination with pivots clamped at 0.1.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/di_pairs.cu`` (one warp per pair, iterates in shared memory, f32
-and f64), which takes the place of both the TPU's Pallas Newton-Schulz
-kernel ``ns_sqrtm_pallas`` and the XLA core around it; the source says
-what bounds it. On a CPU tensor it runs ``di_pairs_torch``.
+``csrc/di_pairs.cu`` (register-blocked products: each lane owns a micro-
+tile of every s x s product, two pairs a warp at s = 20, s zero-padded to
+a multiple of 4; iterates in shared memory; f32 and f64), which takes the
+place of both the TPU's Pallas Newton-Schulz kernel ``ns_sqrtm_pallas``
+and the XLA core around it; the source says what bounds it. On a CPU
+tensor it runs ``di_pairs_torch``.
 ``ns_sqrtm_torch`` is the plain counterpart of ``ns_sqrtm_pallas``.
 
 ``mJ`` may be a row slab ``[rows s, N s]`` of the coupling matrix that

@@ -1,6 +1,6 @@
 """All-pairs sequence-identity row statistics (hot loop #1).
 
-``row_stats(Z, thresh) -> (rowsum, below)`` is the contract of
+``row_stats(Z, thresh, q=21) -> (rowsum, below)`` is the contract of
 ``gaussdca_tpu.ops.distance.row_stats_sym_pallas``: for every row a of the
 token matrix Z [M, N],
 
@@ -8,22 +8,23 @@ token matrix Z [M, N],
     below[a]  = #{b : N - matches(a, b) < thresh}
 
 over all b, b = a included, where ``matches`` counts the columns on which
-two rows carry the same non-zero token (token 0 is padding and matches
-nothing, itself included). The [M, M] match matrix never exists.
+two rows carry the same token in 1..q (token 0 is padding and matches
+nothing, itself included; as in the JAX kernel, a token above q matches
+nothing either). The [M, M] match matrix never exists.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-A, ``csrc/row_stats.cu`` (tokens packed 4 to a word, bytewise compare and
-popcount, upper-triangle tiles with integer atomics; the source says what
-bounds it). On a CPU tensor it runs ``row_stats_torch``, the plain
-PyTorch version.
+A, ``csrc/row_stats.cu`` (int8 ``wgmma`` over one-hot operands built
+on chip from packed token words, upper-triangle tiles with integer
+atomics; the source says what bounds it). On a CPU tensor it runs
+``row_stats_torch``, the plain PyTorch version.
 
 ``row_stats_rect(ZA, ZB, thresh)`` is the contract of
 ``row_stats_rect_pallas``: the same statistics for A's rows against all of
 B's rows, the per-shard reweighting of the mesh path. On a CUDA tensor it
 launches kernel C, ``csrc/row_stats_rect.cu`` (the same packed compare
 over the full rectangular tile grid); on a CPU tensor it runs
-``row_stats_rect_torch``. ``row_stats_full(Z, t)`` is ``row_stats_rect(Z,
-Z, t)``, the port of the full-grid ``row_stats_pallas``.
+``row_stats_rect_torch``. ``row_stats_full(Z, t, q)`` is
+``row_stats_rect(Z, Z, t)``, the port of the full-grid ``row_stats_pallas``.
 
 Three more kernels port the JAX package's other distance kernels:
 
@@ -31,7 +32,7 @@ Three more kernels port the JAX package's other distance kernels:
   ``match_counts_pallas`` (kernel D, ``csrc/match_counts.cu``: the packed
   compare over the full tile grid, each tile written out); plain version
   ``match_counts_torch``.
-- ``row_stats_asym(Z, thresh)``: ``row_stats`` by the grouped-row
+- ``row_stats_asym(Z, thresh, q)``: ``row_stats`` by the grouped-row
   covering of ``row_stats_asym_pallas`` (kernel E,
   ``csrc/row_stats_asym.cu``; ``plan_asym`` picks the group size against
   shared memory, and a width with no plan takes ``row_stats``); plain
@@ -61,6 +62,8 @@ _ASYM_SMEM_BUDGET = 233472 // 2 - 2048
 _ASYM_BLOCKS_PER_SM = 4
 # kernel F walks the plane depth 64 bytes a stage: pad K to a multiple
 _E8_DEPTH = 64
+# kernel A sums 2^14 a match in int32: fewer columns than 2^17
+_TC_MAX_WIDTH = 1 << 17
 
 
 def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
@@ -91,9 +94,18 @@ def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
     return rowsum, below
 
 
-def row_stats_torch(Z: torch.Tensor, thresh, *, row_chunk: int = 4096):
-    """Plain PyTorch ``row_stats``: ``row_stats_rect_torch(Z, Z, ...)``."""
-    return row_stats_rect_torch(Z, Z, thresh, row_chunk=row_chunk)
+def _states_up_to(Z: torch.Tensor, q: int) -> torch.Tensor:
+    """Z with the tokens above q zeroed: they match nothing."""
+    return torch.where(Z <= q, Z, 0)
+
+
+def row_stats_torch(Z: torch.Tensor, thresh, q: int = 21, *,
+                    row_chunk: int = 4096):
+    """Plain PyTorch ``row_stats`` over states 1..q:
+    ``row_stats_rect_torch(Zq, Zq, ...)`` of Z with the tokens above q
+    zeroed."""
+    Zq = _states_up_to(Z, q)
+    return row_stats_rect_torch(Zq, Zq, thresh, row_chunk=row_chunk)
 
 
 def _check_tokens(fn: str, *Zs: torch.Tensor) -> None:
@@ -129,23 +141,31 @@ def _lib(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def row_stats(Z: torch.Tensor, thresh):
+def row_stats(Z: torch.Tensor, thresh, q: int = 21):
     """(rowsum [M] f32, below [M] f32) of token matrix Z (uint8 or int8,
-    states 0..31). ``thresh``: a Python or 0-d tensor scalar, compared in
-    f32 like the TPU kernel. CPU tensors take ``row_stats_torch``; CUDA
+    states 0..31) over states 1..q (1 <= q <= 31; tokens above q match
+    nothing). ``thresh``: a Python or 0-d tensor scalar, compared in f32
+    like the TPU kernel. CPU tensors take ``row_stats_torch``; CUDA
     tensors launch kernel A (build and launch errors raise)."""
     _check_tokens("row_stats", Z)
+    if not 1 <= q <= 31:
+        raise ValueError(f"row_stats: q must be in 1..31, got {q}")
     if Z.device.type == "cpu":
-        return row_stats_torch(Z, thresh)
+        return row_stats_torch(Z, thresh, q)
     M, N = Z.shape
+    if N >= _TC_MAX_WIDTH:
+        raise ValueError(f"row_stats: N = {N} columns, the kernel counts "
+                         f"fewer than {_TC_MAX_WIDTH}")
     rowsum = torch.zeros(M, dtype=torch.int64, device=Z.device)
     below = torch.zeros(M, dtype=torch.int64, device=Z.device)
     if M == 0:
         return rowsum.float(), below.float()
-    words = pack_tokens(Z)
-    fn = _lib("row_stats", "gdca_row_stats", [_P, _I, _I, _I, _F, _P, _P, _P])
+    # the kernel's byte compare takes tokens 0..q only
+    words = pack_tokens(_states_up_to(Z, q))
+    fn = _lib("row_stats", "gdca_row_stats",
+              [_P, _I, _I, _I, _F, _I, _P, _P, _P])
     with torch.cuda.device(Z.device):
-        err = fn(words.data_ptr(), M, words.shape[1], N, float(thresh),
+        err = fn(words.data_ptr(), M, words.shape[1], N, float(thresh), q,
                  rowsum.data_ptr(), below.data_ptr(),
                  torch.cuda.current_stream(Z.device).cuda_stream)
     if err != 0:
@@ -212,11 +232,13 @@ def row_stats_rect(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
 row_stats_rect.launches = 0
 
 
-def row_stats_full(Z: torch.Tensor, thresh):
+def row_stats_full(Z: torch.Tensor, thresh, q: int = 31):
     """The full-grid square row stats (the port of ``row_stats_pallas``):
     ``row_stats_rect(Z, Z, ...)``, the same result as ``row_stats`` for
     twice its tile pairs. No pipeline path calls it: a caller passes it
-    as ``row_stats_fn``."""
+    as ``row_stats_fn``. ``q`` serves that contract only: every token
+    1..31 counts, as in kernel C (an alignment over states 1..q holds no
+    other)."""
     return row_stats_rect(Z, Z, thresh)
 
 
@@ -346,17 +368,19 @@ def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, *,
     return rs[:M].float(), bl[:M].float()
 
 
-def row_stats_asym(Z: torch.Tensor, thresh):
+def row_stats_asym(Z: torch.Tensor, thresh, q: int = 31):
     """``row_stats`` by kernel E's grouped-row covering: the same (rowsum,
-    below). A width with no plan (``plan_asym`` gives 1) takes
-    ``row_stats`` (kernel A on a card, counted there). CPU tensors take
+    below). ``q`` serves the ``row_stats_fn`` contract only: every token
+    1..31 counts (an alignment over states 1..q holds no other). A width
+    with no plan (``plan_asym`` gives 1) takes ``row_stats`` over every
+    state (kernel A on a card, counted there). CPU tensors take
     ``row_stats_asym_torch``; CUDA tensors launch kernel E (build and
     launch errors raise)."""
     _check_tokens("row_stats_asym", Z)
     M, N = Z.shape
     k = plan_asym(N)
     if k < 2:
-        return row_stats(Z, thresh)
+        return row_stats(Z, thresh, q=31)   # every state, as kernel E
     if Z.device.type == "cpu":
         return row_stats_asym_torch(Z, thresh, k)
     rowsum = torch.zeros(M, dtype=torch.int64, device=Z.device)

@@ -59,16 +59,18 @@ def _even_bounds(n: int, ndev: int, per: int) -> Bounds:
 
 
 def _row_stats_sharded(mesh: Mesh, Z_on: dict, m_loc: int) -> Callable:
-    """``fn(Z, thresh) -> (rowsum, below)`` over all rows, on the home
+    """``fn(Z, thresh, q) -> (rowsum, below)`` over all rows, on the home
     device: shard d computes its row block against all rows. On a card
     the tokens are packed once per device (``pack_tokens``) and each
-    shard's block is a slice of them."""
+    shard's block is a slice of them. Kernel C counts every token 1..31,
+    so ``q`` serves the ``row_stats_fn`` contract only (an alignment over
+    states 1..q holds no other)."""
     N = Z_on[mesh.home].shape[1]
     cuda = mesh.home.type == "cuda"
     words = {dev: distance.pack_tokens(Z) for dev, Z in Z_on.items()} \
         if cuda else None
 
-    def fn(Z: torch.Tensor, thresh):
+    def fn(Z: torch.Tensor, thresh, q: int):
         if Z.shape != Z_on[mesh.home].shape:
             raise ValueError("sharded row stats: unexpected token matrix")
         parts = []

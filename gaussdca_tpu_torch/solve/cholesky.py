@@ -2,9 +2,10 @@
 
 The reference's ``mJ = inv(cholesky(C))`` (src/GaussDCA.jl:34):
 ``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse`` (LAPACK on the
-CPU, cuSOLVER on the card), then symmetrized. In f32 one Newton step
-``X <- X + X (I - C X)`` follows at full f32 (the pipeline runs with TF32
-off), the f32 default of ``gaussdca_tpu.solve.cholesky.spd_inverse``
+CPU, cuSOLVER on the card), then symmetrized and returned row-major. In
+f32 one Newton step ``X <- X + X (I - C X)`` follows at full f32 (the
+pipeline runs with TF32 off), the f32 default of
+``gaussdca_tpu.solve.cholesky.spd_inverse``
 (``refine_iters=1``): it recovers most of what the factorization loses
 through cond(C). The JAX package's doubling triangular inverse and slab
 SYRK exist because the TPU's TRSM serializes its panel steps; they are not
@@ -39,4 +40,8 @@ def spd_inverse(C: torch.Tensor,
         R = -(C @ X)
         R.diagonal().add_(1.0)
         X = X + X @ R
-    return (X + X.T) * 0.5
+    # exactly symmetric (a + b == b + a), so its transpose is the same
+    # matrix: hand it on row-major, where X is column-major as LAPACK and
+    # cuSOLVER write it, and the consumers' row blocks need no copy
+    S = (X + X.T) * 0.5
+    return S if S.is_contiguous() else S.T.contiguous()

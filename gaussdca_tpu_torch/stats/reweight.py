@@ -12,11 +12,12 @@ The contract of ``gaussdca_tpu.stats.reweight.compute_weights_streaming``:
   histograms, so the O(M^2 N) distance pass runs once in either theta
   mode.
 
-The distance pass is ``row_stats_fn`` (default ``ops.distance.row_stats``:
-the Hopper kernel on a CUDA tensor, its plain version on the CPU); only
-O(M) state is kept. ``m_true`` is the unpadded row count when Z carries
-token-0 padding rows (the mesh path pads M to a multiple of its shard
-count): they leave the auto-theta pair count, W and Meff.
+The distance pass is ``row_stats_fn(Z, thresh, q)``, the JAX package's
+contract (default ``ops.distance.row_stats`` over the alignment's states
+1..q: the Hopper kernel on a CUDA tensor, its plain version on the CPU);
+only O(M) state is kept. ``m_true`` is the unpadded row count when Z
+carries token-0 padding rows (the mesh path pads M to a multiple of its
+shard count): they leave the auto-theta pair count, W and Meff.
 
 ``compute_weights`` is the dense path of ``gaussdca_tpu.stats.reweight``:
 the [M, M] identity counts from ``match_counts_fn`` (default
@@ -82,12 +83,12 @@ def compute_weights_streaming(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(W [M], Meff, resolved theta) of token matrix Z [M, N] in O(M)
     memory; theta is "auto" or a real in [0, 1].
-    ``row_stats_fn(Z, thresh) -> (rowsum, below)`` defaults to
+    ``row_stats_fn(Z, thresh, q) -> (rowsum, below)`` defaults to
     ``row_stats``; rows at or past ``m_true`` get weight 0."""
     M, N = Z.shape
     th = _resolve_theta(Z, theta, q, m_true, dtype)
-    thresh = torch.floor(th * N)
-    _, below = (row_stats_fn or row_stats)(Z, thresh.to(torch.float32))
+    thresh = torch.floor(th * N).to(torch.float32)
+    _, below = (row_stats_fn or row_stats)(Z, thresh, q)
     self_match = 1.0 if bool(thresh > 0) else 0.0
     below = torch.clamp(below.to(dtype) - self_match, min=0.0)
     W = 1.0 / (1.0 + below)

@@ -3,6 +3,8 @@
 ``ns_sqrtm_torch`` is held against the Pallas kernel ``ns_sqrtm_pallas``
 in interpret mode; ``di_pairs`` (on a CPU tensor, its plain version)
 against the batch-minor DI core ``_di_pairs_bm_minor`` on the same blocks.
+The CUDA kernel's zero padding of s to a multiple of 4 is emulated here
+and held against both.
 """
 
 import jax.numpy as jnp
@@ -90,3 +92,71 @@ def test_di_pairs_rejects_bad_shapes():
     with pytest.raises(ValueError, match="dtypes"):
         tdi.di_pairs(torch.as_tensor(mJ).float(), torch.as_tensor(Ls),
                      iu, ju)
+
+
+def _pad_blocks(X, S):
+    out = X.new_zeros((X.shape[0], S, S))
+    out[:, :X.shape[1], :X.shape[2]] = X
+    return out
+
+
+def _di_zero_padded(Jb, Li, Lj, iters):
+    """(DI, Y) by kernel B's padded arithmetic: the [P, s, s] blocks are
+    zero-padded to S = s rounded up to a multiple of 4, G = 4 rho rho^T +
+    I over all S, the trace over the first s diagonal entries, the
+    infinity norm over every row, and the logdet over the first s
+    pivots."""
+    P, s, _ = Jb.shape
+    S = -(-s // 4) * 4
+    Jp, Lip, Ljp = (_pad_blocks(X, S) for X in (Jb, Li, Lj))
+    eye = torch.eye(S, dtype=Jb.dtype)
+    rho = Lip.transpose(-1, -2) @ (Jp @ Ljp)
+    G = 4.0 * (rho @ rho.transpose(-1, -2)) + eye
+    tr = torch.diagonal(G, dim1=-2, dim2=-1)[:, :s].sum(-1)
+    inf = G.abs().sum(-1).amax(-1)
+    c = torch.minimum(tr, inf)[:, None, None]
+    Y = G / c
+    T = 1.5 * eye - 0.5 * Y
+    Y, Z = Y @ T, T
+    for it in range(1, iters):
+        T = 1.5 * eye - 0.5 * (Z @ Y)
+        Y = Y @ T
+        if it < iters - 1:
+            Z = T @ Z
+    H = 0.5 * (Y * torch.sqrt(c) + eye)
+    H = 0.5 * (H + H.transpose(-1, -2))
+    acc = torch.zeros(P, dtype=Jb.dtype)
+    for k in range(s):
+        pivot = torch.clamp(H[:, k, k], min=0.1)
+        acc = acc + torch.log(pivot)
+        H = H - (H[:, :, k] / pivot[:, None])[:, :, None] * H[:, k, None, :]
+    return 0.5 * acc, Y
+
+
+@pytest.mark.parametrize("s", range(1, 31))
+def test_di_zero_padding_is_exact(s):
+    """Kernel B pads s up to a multiple of 4 with zeros: the emulation
+    gives ``di_pairs_torch``'s DI within 1e-12 in f64 and the JAX core's,
+    with the padded off-diagonal blocks exactly zero and the padded
+    block finite."""
+    N = 5
+    mJ, Ls = _blocks(N, s, seed=100 + s)
+    iu, ju = np.triu_indices(N, k=1)
+    J4 = mJ.reshape(N, s, N, s)
+    Jb, Li, Lj = (torch.as_tensor(x) for x in (J4[iu, :, ju, :], Ls[iu],
+                                               Ls[ju]))
+    got, Y = _di_zero_padded(Jb, Li, Lj, tdi.BM_NS_ITERS)
+    want = tdi.di_pairs_torch(torch.as_tensor(mJ), torch.as_tensor(Ls),
+                              torch.as_tensor(iu), torch.as_tensor(ju))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=0)
+    jax_di = _di_pairs_bm_minor(jnp.asarray(np.moveaxis(J4[iu, :, ju, :],
+                                                        0, -1)),
+                                jnp.asarray(np.moveaxis(Ls[iu], 0, -1)),
+                                jnp.asarray(np.moveaxis(Ls[ju], 0, -1)),
+                                iters=14)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_di), rtol=1e-12,
+                               atol=0)
+    assert torch.count_nonzero(Y[:, :s, s:]) == 0
+    assert torch.count_nonzero(Y[:, s:, :s]) == 0
+    assert torch.isfinite(Y).all()

@@ -113,6 +113,22 @@ def test_spd_inverse_matches_jax(golden_dir):
     assert torch.equal(got, got.T)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_spd_inverse_is_row_major(dtype):
+    """The inverse comes back row-major and exactly symmetric, so a row
+    slab of it (the DI kernel's and the mesh's input) is a view."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((60, 60))
+    C = torch.as_tensor(A @ A.T / 60 + 0.5 * np.eye(60), dtype=dtype)
+    X = spd_inverse(C)
+    assert X.is_contiguous() and X[20:40].is_contiguous()
+    assert torch.equal(X, X.T)
+    want = torch.cholesky_inverse(torch.linalg.cholesky(C.double()))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    np.testing.assert_allclose(X.double().numpy(), want.numpy(), rtol=0,
+                               atol=tol * float(want.abs().max()))
+
+
 def test_spd_inverse_f32_newton_step():
     """f32: Cholesky inverse plus one Newton step leaves a residual near
     the f32 floor on a moderately conditioned SPD matrix."""

@@ -10,7 +10,6 @@ f64).
   the JAX ``top_k_device``, on one device and through a mesh.
 """
 
-import functools
 import os
 
 import jax.numpy as jnp
@@ -58,8 +57,7 @@ _WEIGHTS = {
     "row_stats_full": lambda Z, th, q: reweight.compute_weights_streaming(
         Z, th, q, dtype=F64, row_stats_fn=distance.row_stats_full),
     "row_stats_sym_e8": lambda Z, th, q: reweight.compute_weights_streaming(
-        Z, th, q, dtype=F64, row_stats_fn=functools.partial(
-            distance.row_stats_sym_e8, q=q)),
+        Z, th, q, dtype=F64, row_stats_fn=distance.row_stats_sym_e8),
     "match_counts": lambda Z, th, q: reweight.compute_weights(
         Z, th, dtype=F64, q=q),
 }
