@@ -11,10 +11,12 @@ prints no result line):
 2. build: the six CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
    nvcc, one compiler process each, all started together;
 3. kernels vs their plain PyTorch versions on the card: row statistics
-   (kernel A, exact equality) at four shapes, each at q = 9, 21 and 31;
-   rectangular row statistics
-   (kernel C, exact) at four shapes, including a row block with token-0
-   pad rows, and equal to kernel A on (Z, Z); per-pair DI (kernel B) at
+   (kernel A, exact equality) at four shapes of tokens 1..31, each at
+   q = 9, 21 and 31 (tokens above q match nothing); rectangular row
+   statistics (kernel C, exact) at the same shapes and q, on a row block
+   at a row offset (with token-0 pad rows), an unrelated A of 333 rows and
+   a B of 70 rows, and C on (Z, Z) equal to kernel A at every q; per-pair
+   DI (kernel B) at
    s = 8, 20, 30 on blocks from real pipelines, on the whole coupling
    matrix and on a row slab (f32 max abs <= 1e-5, f64 <= 1e-10, the slab
    bitwise equal to the whole), the same at a full and a ragged s of
@@ -25,7 +27,9 @@ prints no result line):
    and the one-hot-plane row statistics on the int8 tensor cores
    (kernel F), each equal to its plain version and to kernel A at five
    shapes (ragged M, token-0 pad rows, q = 21 / 29 / 31, for E a width
-   where its plan groups k >= 2 row tiles and one where it has no plan),
+   where its plan groups k >= 2 row tiles and one where it has no plan;
+   D also on tokens 1..31 at q = 9, 21 and 31, its rows equal to kernel
+   A's),
    then at the main shape M=32768, N=384, q=21 (E and F equal to kernel
    A, D's row sums and neighbour counts equal to kernel A's, and D equal
    to the one one-hot ``torch.matmul`` timed as its library call); then
@@ -194,20 +198,22 @@ def _covariance(tokens: np.ndarray, q: int, *, pc: float, theta, device):
     return spd_inverse(C), C
 
 
-def _rect_check(ZA, ZB, thresh, what):
-    """Kernel C equal to its plain version; returns the max abs error."""
+def _rect_check(ZA, ZB, thresh, q, what):
+    """Kernel C equal to its plain version at states 1..q; returns the
+    result and the max abs error."""
     import torch
     from gaussdca_tpu_torch.ops import distance
 
-    got = distance.row_stats_rect(ZA, ZB, thresh)
-    want = distance.row_stats_rect_torch(ZA, ZB, thresh)
+    got = distance.row_stats_rect(ZA, ZB, thresh, q=q)
+    want = distance.row_stats_rect_torch(ZA, ZB, thresh, q=q)
     torch.cuda.synchronize()
     err = 0.0
     for g, w, name in zip(got, want, ("rowsum", "below")):
         if not torch.equal(g, w):
             raise AssertionError(
                 f"row_stats_rect {name} differs from its plain version "
-                f"({what}, thresh={thresh}): {int((g != w).sum())} rows")
+                f"({what}, q={q}, thresh={thresh}): {int((g != w).sum())} "
+                "rows")
         err = max(err, float((g - w).abs().max()))
     return got, err
 
@@ -222,19 +228,20 @@ def phase_kernels(dev):
     from gaussdca_tpu_torch.score.di import site_cholesky
     from gaussdca_tpu_torch.stats import reweight
 
-    # --- kernel A: exact equality; kernel C on row blocks of the same Z
+    # --- kernel A: exact equality; kernel C on row blocks of the same Z;
+    # tokens 1..31, so that tokens above q occur at q = 9 and 21
     err_a = err_c = 0.0
-    for M, N, q, pad, rows in [(1000, 53, 21, 24, (100, 1024)),
+    for M, N, q, pad, rows in [(1000, 53, 31, 24, (100, 1024)),
                                (777, 250, 31, 0, None),
-                               (4096, 384, 21, 0, (1024, 2048)),
-                               (32768, 384, 21, 0, (8192, 16384))]:
+                               (4096, 384, 31, 0, (1024, 2048)),
+                               (32768, 384, 31, 0, (8192, 16384))]:
         Z = family_tokens(M, N, q, seed=M + N)
         M, N = Z.shape
         if pad:
             Z = np.concatenate([Z, np.zeros((pad, N), np.uint8)])
         Zt = torch.as_tensor(Z, device=dev)
         # a row block of Z (here with the pad rows), or, at 777 x 250,
-        # an unrelated A with Ma = 333 (not a multiple of 64)
+        # an unrelated A with Ma = 333 (not a multiple of 128)
         ZA = (Zt[rows[0]:rows[1]] if rows else torch.as_tensor(
             family_tokens(333, N, q, seed=5), device=dev))
         th_auto = float(reweight.auto_theta_closed_form(Zt, q))
@@ -256,22 +263,30 @@ def phase_kernels(dev):
                     err_a = max(err_a, float((g - w).abs().max()))
                 if pad and (got[0][-pad:].any() or got[1][-pad:].any()):
                     raise AssertionError("token-0 rows must score 0")
-            rect, err = _rect_check(
-                ZA, Zt, thresh, f"Ma={ZA.shape[0]} Mb={Zt.shape[0]} N={N}")
-            err_c = max(err_c, err)
-            if pad and (rect[0][-pad:].any() or rect[1][-pad:].any()):
-                raise AssertionError("token-0 rows must score 0 (rect)")
-            # the B4 contract: full-grid rect on (Z, Z) is kernel A over
-            # every state (``got`` is the q = 31 run)
-            full = distance.row_stats_full(Zt, thresh)
-            if not all(torch.equal(x, y) for x, y in zip(full, got)):
-                raise AssertionError(
-                    f"row_stats_rect(Z, Z) != row_stats(Z) at M={M} N={N}")
+                # kernel C at the same q: the row block, and at M = 1000
+                # a B of 70 rows (one B tile, mostly padding)
+                rect, err = _rect_check(
+                    ZA, Zt, thresh, qk,
+                    f"Ma={ZA.shape[0]} Mb={Zt.shape[0]} N={N}")
+                err_c = max(err_c, err)
+                if pad and (rect[0][-pad:].any() or rect[1][-pad:].any()):
+                    raise AssertionError("token-0 rows must score 0 (rect)")
+                if M == 1000:
+                    err_c = max(err_c, _rect_check(
+                        Zt[:50], Zt[900:970], thresh, qk,
+                        f"Ma=50 Mb=70 N={N}")[1])
+                # the B4 contract: full-grid rect on (Z, Z) is kernel A
+                full = distance.row_stats_full(Zt, thresh, qk)
+                if not all(torch.equal(x, y) for x, y in zip(full, got)):
+                    raise AssertionError(
+                        f"row_stats_rect(Z, Z) != row_stats(Z) at M={M} "
+                        f"N={N} q={qk}")
         log(f"[kernels] row_stats == plain at M={M} N={N} tokens 1..{q} "
             f"(+{pad} token-0 rows), q {' / '.join(map(str, A_STATES))}, "
-            f"theta 0 / 0.2 / auto={th_auto:.4f}; "
+            f"theta 0 / 0.2 / auto={th_auto:.4f}; at each q "
             f"row_stats_rect == plain at Ma={ZA.shape[0]} "
-            f"({'rows %d:%d' % rows if rows else 'unrelated A'}), "
+            f"({'rows %d:%d' % rows if rows else 'unrelated A'}"
+            f"{', and Ma=50 vs Mb=70' if M == 1000 else ''}), "
             "and == row_stats on (Z, Z)")
 
     # --- kernel B: realistic blocks at s = 8, 20, 30, whole and slab
@@ -382,9 +397,10 @@ def phase_kernels(dev):
         f"{M * M / 2 * N / 4 / POPC_WORDS_S * 1e3:.2f} ms")
     # the full-grid square kernel (row_stats_pallas' port) is kernel C
     # on (Z, Z): twice kernel A's pairs
-    ms_full = cuda_ms(lambda: distance.row_stats_full(Z, thresh), reps=3)
+    ms_full = cuda_ms(lambda: distance.row_stats_full(Z, thresh, 21),
+                      reps=3)
     plain_full = cuda_ms(
-        lambda: distance.row_stats_rect_torch(Z, Z, thresh), reps=3)
+        lambda: distance.row_stats_rect_torch(Z, Z, thresh, q=21), reps=3)
     bound_full = bound(M * N + 8 * M, 2 * M * M * N * 21, INT8_OPS_S)
     log(f"[kernels] row_stats_full M={M} N={N} q=21: kernel "
         f"{ms_full:.3f} ms, plain {plain_full:.3f} ms; bound "
@@ -394,9 +410,10 @@ def phase_kernels(dev):
     # kernel C at one shard of the 4-shard main path: 8192 rows vs all
     ZA = Z[8192:16384]
     Ma = ZA.shape[0]
-    ms_c = cuda_ms(lambda: distance.row_stats_rect(ZA, Z, thresh), reps=5)
-    plain_c = cuda_ms(lambda: distance.row_stats_rect_torch(ZA, Z, thresh),
-                      reps=3)
+    ms_c = cuda_ms(lambda: distance.row_stats_rect(ZA, Z, thresh, q=21),
+                   reps=5)
+    plain_c = cuda_ms(
+        lambda: distance.row_stats_rect_torch(ZA, Z, thresh, q=21), reps=3)
     bound_c = bound((Ma + M) * N + 8 * Ma, 2 * Ma * M * N * 21, INT8_OPS_S)
     log(f"[kernels] row_stats_rect Ma={Ma} Mb={M} N={N} q=21: kernel "
         f"{ms_c:.3f} ms, plain {plain_c:.3f} ms; bound {bound_c[0]:.2f} ms"
@@ -494,6 +511,27 @@ def _equal_stats(got, want, what):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def _dense_check(Z, q, thresh, what, D=None):
+    """Kernel D (or its result ``D``) equal to its plain version at states
+    1..q, every entry; with ``thresh``, its rows also equal to kernel A's
+    row statistics. Returns the max abs error."""
+    import torch
+    from gaussdca_tpu_torch.ops import distance
+
+    D = distance.match_counts(Z, q) if D is None else D
+    Dp = distance.match_counts_torch(Z, q)
+    torch.cuda.synchronize()
+    if not torch.equal(D, Dp):
+        raise AssertionError(f"match_counts differs from its plain version "
+                             f"at {what}: {int((D != Dp).sum())} entries")
+    if thresh is not None:
+        _equal_stats((D.sum(1, dtype=torch.int64).float(),
+                      ((Z.shape[1] - D) < thresh).sum(1).float()),
+                     distance.row_stats(Z, thresh, q),
+                     f"match_counts rows vs row_stats, {what}")
+    return float((D - Dp).abs().max())
+
+
 def phase_dense_kernels(dev):
     """Kernels D, E and F against their plain versions and kernel A;
     returns their records (without launch counts) for the summary line."""
@@ -511,15 +549,19 @@ def phase_dense_kernels(dev):
             Z = np.concatenate([Z, np.zeros((pad, N), np.uint8)])
         Zt = torch.as_tensor(Z, device=dev)
         k = distance.plan_asym(N)
-        D = distance.match_counts(Zt)
-        Dp = distance.match_counts_torch(Zt)
-        torch.cuda.synchronize()
-        if not torch.equal(D, Dp):
-            raise AssertionError(f"match_counts differs from its plain "
-                                 f"version at M={M + pad} N={N} q={q}: "
-                                 f"{int((D != Dp).sum())} entries")
-        err["match_counts"] = max(err["match_counts"],
-                                  float((D - Dp).abs().max()))
+        # kernel D on tokens 1..31 at each q of kernel A (tokens above q
+        # match nothing): equal to its plain version, rows equal to A's
+        Z31 = family_tokens(M, N, 31, seed=3 * M + N + 1)
+        if pad:
+            Z31 = np.concatenate([Z31, np.zeros((pad, N), np.uint8)])
+        Z31 = torch.as_tensor(Z31, device=dev)
+        thresh = float(np.float32(np.floor(0.2 * N)))
+        for qk in A_STATES:
+            err["match_counts"] = max(err["match_counts"], _dense_check(
+                Z31, qk, thresh, f"M={M + pad} N={N} tokens 1..31 q={qk}"))
+        D = distance.match_counts(Zt, q)
+        err["match_counts"] = max(err["match_counts"], _dense_check(
+            Zt, q, None, f"M={M + pad} N={N} tokens 1..{q} q={q}", D))
         planes = distance.one_hot_planes(Zt, q)
         th_auto = float(reweight.auto_theta_closed_form(Zt, q))
         for theta in (0.0, 0.2, th_auto, 0.7):
@@ -543,7 +585,9 @@ def phase_dense_kernels(dev):
         log(f"[kernels] match_counts, row_stats_asym (plan k={k}"
             f"{', no plan: kernel A' if k < 2 else ''}), row_stats_sym_e8 "
             f"== plain and == row_stats at M={M} N={N} q={q} (+{pad} "
-            f"token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f} / 0.7")
+            f"token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f} / 0.7; "
+            f"match_counts == plain and its rows == row_stats on tokens "
+            f"1..31 at q {' / '.join(map(str, A_STATES))}")
 
     # --- the main shape: equal to kernel A, then times
     Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
@@ -556,7 +600,7 @@ def phase_dense_kernels(dev):
     planes = distance.one_hot_planes(Z, q)
     _equal_stats(distance.row_stats_e8(planes, N, thresh), A,
                  "row_stats_sym_e8 vs row_stats at the main shape")
-    D = distance.match_counts(Z)
+    D = distance.match_counts(Z, q)
     _equal_stats((D.sum(1, dtype=torch.int64).float(),
                   ((N - D) < thresh).sum(1).float()), A,
                  "match_counts rows vs row_stats at the main shape")
@@ -575,8 +619,8 @@ def phase_dense_kernels(dev):
                                                           thresh), reps=3)
     ms_planes = cuda_ms(lambda: distance.one_hot_planes(Z, q), reps=3)
     del planes
-    ms_d = cuda_ms(lambda: distance.match_counts(Z), reps=5)
-    plain_d = cuda_ms(lambda: distance.match_counts_torch(Z), reps=3)
+    ms_d = cuda_ms(lambda: distance.match_counts(Z, q), reps=5)
+    plain_d = cuda_ms(lambda: distance.match_counts_torch(Z, q), reps=3)
     lib_d = cuda_ms(lambda: match_counts_library(Z, q), reps=3)
     # E: kernel A's half grid (M^2 N q int8 operations as the JAX kernel
     # counts them); reads Z once, writes two [M] results
@@ -584,8 +628,9 @@ def phase_dense_kernels(dev):
     # F: the same half grid over the planes, read once
     bound_f = bound(M * planes_width(N, q) + 8 * M, M * M * N * q,
                     INT8_OPS_S)
-    # D: the full grid; reads Z once, writes the [M, M] int32 counts
-    bound_d = bound(M * N + 4 * M * M, 2 * M * M * N * q, INT8_OPS_S)
+    # D: the half grid (the counts are symmetric); reads Z once, writes
+    # the [M, M] int32 counts
+    bound_d = bound(M * N + 4 * M * M, M * M * N * q, INT8_OPS_S)
     popc_half = M * M / 2 * N / 4 / POPC_WORDS_S * 1e3
     log(f"[kernels] row_stats_asym M={M} N={N} q={q} k={k}: kernel "
         f"{ms_e:.3f} ms, plain {plain_e:.3f} ms; bound {bound_e[0]:.2f} ms "
@@ -596,9 +641,10 @@ def phase_dense_kernels(dev):
         f"{bound_f[0]:.2f} ms ({bound_f[1]})")
     log(f"[kernels] match_counts M={M} N={N} q={q}: kernel {ms_d:.3f} ms, "
         f"plain {plain_d:.3f} ms, one one-hot torch.matmul {lib_d:.3f} ms; "
-        f"bound {bound_d[0]:.2f} ms ({bound_d[1]}; the output alone "
-        f"{4 * M * M / HBM_BYTES_S * 1e3:.2f} ms), popcount-pipe bound "
-        f"{2 * popc_half:.2f} ms")
+        f"bound {bound_d[0]:.2f} ms ({bound_d[1]}, the half grid; the full "
+        f"grid {2 * M * M * N * q / INT8_OPS_S * 1e3:.2f} ms, the output "
+        f"alone {4 * M * M / HBM_BYTES_S * 1e3:.2f} ms), popcount-pipe "
+        f"bound {2 * popc_half:.2f} ms")
     return [
         {"name": "match_counts", "route": "cuda",
          "source": "gaussdca_tpu_torch/csrc/match_counts.cu",

@@ -18,22 +18,23 @@ on chip from packed token words, upper-triangle tiles with integer
 atomics; the source says what bounds it). On a CPU tensor it runs
 ``row_stats_torch``, the plain PyTorch version.
 
-``row_stats_rect(ZA, ZB, thresh)`` is the contract of
+``row_stats_rect(ZA, ZB, thresh, q=q)`` is the contract of
 ``row_stats_rect_pallas``: the same statistics for A's rows against all of
 B's rows, the per-shard reweighting of the mesh path. On a CUDA tensor it
-launches kernel C, ``csrc/row_stats_rect.cu`` (the same packed compare
-over the full rectangular tile grid); on a CPU tensor it runs
-``row_stats_rect_torch``. ``row_stats_full(Z, t, q)`` is
-``row_stats_rect(Z, Z, t)``, the port of the full-grid ``row_stats_pallas``.
+launches kernel C, ``csrc/row_stats_rect.cu`` (kernel A's tensor-core tile,
+``csrc/onehot_wgmma.cuh``, over the full rectangular tile grid); on a CPU
+tensor it runs ``row_stats_rect_torch``. ``row_stats_full(Z, t, q)`` is
+``row_stats_rect(Z, Z, t, q=q)``, the port of the full-grid
+``row_stats_pallas``.
 
 Three more kernels port the JAX package's other distance kernels:
 
-- ``match_counts(Z)``: the dense [M, M] int32 identity counts of
-  ``match_counts_pallas`` (kernel D, ``csrc/match_counts.cu``: the packed
-  compare over the full tile grid, each tile written out); plain version
-  ``match_counts_torch``.
-- ``row_stats_asym(Z, thresh, q)``: ``row_stats`` by the grouped-row
-  covering of ``row_stats_asym_pallas`` (kernel E,
+- ``match_counts(Z, q)``: the dense [M, M] int32 identity counts of
+  ``match_counts_pallas`` (kernel D, ``csrc/match_counts.cu``: kernel A's
+  tile over the upper triangle, each tile written at its place and
+  transposed); plain version ``match_counts_torch``.
+- ``row_stats_asym(Z, thresh, q)``: ``row_stats`` over every state by the
+  grouped-row covering of ``row_stats_asym_pallas`` (kernel E,
   ``csrc/row_stats_asym.cu``; ``plan_asym`` picks the group size against
   shared memory, and a width with no plan takes ``row_stats``); plain
   version ``row_stats_asym_torch``, which walks the same covering.
@@ -51,7 +52,9 @@ import torch
 
 from gaussdca_tpu_torch.ops import _build
 
-# the kernel stages 16 words of 4 tokens per step: pad N to a multiple
+# packed rows of 16 words (64 tokens): a multiple of the 8-word chunk of
+# kernels A, C and D and of kernel E's staging step, and 16-byte aligned
+# rows, so a row slice of packed words is aligned too
 _TOKEN_ALIGN = 64
 # kernel E's fine tile (rows) and its shared-memory budget a block: half of
 # an H100 SM's 228 KB less the static and reserved bytes, so two blocks
@@ -62,14 +65,14 @@ _ASYM_SMEM_BUDGET = 233472 // 2 - 2048
 _ASYM_BLOCKS_PER_SM = 4
 # kernel F walks the plane depth 64 bytes a stage: pad K to a multiple
 _E8_DEPTH = 64
-# kernel A sums 2^14 a match in int32: fewer columns than 2^17
+# kernels A, C and D sum 2^14 a match in int32: fewer columns than 2^17
 _TC_MAX_WIDTH = 1 << 17
 
 
 def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
-                         n_true=None, *, row_chunk: int = 4096):
+                         n_true=None, *, q: int = 31, row_chunk: int = 4096):
     """Plain PyTorch ``row_stats_rect``: a row-chunked one-hot matmul of
-    A's rows against B's.
+    A's rows against B's over states 1..q (tokens above q match nothing).
 
     Match counts are sums of 0/1 products, exact in f32 while N < 2^24
     (also under TF32, which represents 0 and 1 exactly); row sums are
@@ -84,7 +87,6 @@ def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
     below = torch.zeros(Ma, dtype=torch.float32, device=ZA.device)
     if Ma == 0 or Mb == 0:
         return rowsum, below
-    q = max(int(ZA.max()), int(ZB.max()))
     EB = _one_hot(ZB, q, torch.float32)
     th = float(thresh)
     for r0 in range(0, Ma, row_chunk):
@@ -94,18 +96,11 @@ def row_stats_rect_torch(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
     return rowsum, below
 
 
-def _states_up_to(Z: torch.Tensor, q: int) -> torch.Tensor:
-    """Z with the tokens above q zeroed: they match nothing."""
-    return torch.where(Z <= q, Z, 0)
-
-
 def row_stats_torch(Z: torch.Tensor, thresh, q: int = 21, *,
                     row_chunk: int = 4096):
     """Plain PyTorch ``row_stats`` over states 1..q:
-    ``row_stats_rect_torch(Zq, Zq, ...)`` of Z with the tokens above q
-    zeroed."""
-    Zq = _states_up_to(Z, q)
-    return row_stats_rect_torch(Zq, Zq, thresh, row_chunk=row_chunk)
+    ``row_stats_rect_torch(Z, Z, ..., q=q)``."""
+    return row_stats_rect_torch(Z, Z, thresh, q=q, row_chunk=row_chunk)
 
 
 def _check_tokens(fn: str, *Zs: torch.Tensor) -> None:
@@ -118,14 +113,28 @@ def _check_tokens(fn: str, *Zs: torch.Tensor) -> None:
             raise ValueError(f"{fn}: unsupported device {Z.device}")
 
 
-def pack_tokens(Z: torch.Tensor) -> torch.Tensor:
+def _check_states(fn: str, q: int) -> None:
+    if not 1 <= q <= 31:
+        raise ValueError(f"{fn}: q must be in 1..31, got {q}")
+
+
+def _check_width(fn: str, N: int) -> None:
+    if N >= _TC_MAX_WIDTH:
+        raise ValueError(f"{fn}: N = {N} columns, the kernel counts "
+                         f"fewer than {_TC_MAX_WIDTH}")
+
+
+def pack_tokens(Z: torch.Tensor, q: int = 31) -> torch.Tensor:
     """The kernels' input layout: tokens [M, N] -> int32 words [M, Np / 4],
     4 tokens a word, N zero-padded to a multiple of 64 (padding never
-    matches). A row block of Z packs to the same row block of words."""
+    matches), tokens above q zeroed (they match nothing; the byte compare
+    of kernels A, C and D takes tokens 0..q only). A row block of Z packs
+    to the same row block of words."""
     M, N = Z.shape
     Np = max(_TOKEN_ALIGN, -(-N // _TOKEN_ALIGN) * _TOKEN_ALIGN)
     Zp = torch.zeros((M, Np), dtype=torch.uint8, device=Z.device)
     Zp[:, :N] = Z.view(torch.uint8)
+    Zp.masked_fill_(Zp > q, 0)
     return Zp.view(torch.int32)
 
 
@@ -148,20 +157,16 @@ def row_stats(Z: torch.Tensor, thresh, q: int = 21):
     like the TPU kernel. CPU tensors take ``row_stats_torch``; CUDA
     tensors launch kernel A (build and launch errors raise)."""
     _check_tokens("row_stats", Z)
-    if not 1 <= q <= 31:
-        raise ValueError(f"row_stats: q must be in 1..31, got {q}")
+    _check_states("row_stats", q)
     if Z.device.type == "cpu":
         return row_stats_torch(Z, thresh, q)
     M, N = Z.shape
-    if N >= _TC_MAX_WIDTH:
-        raise ValueError(f"row_stats: N = {N} columns, the kernel counts "
-                         f"fewer than {_TC_MAX_WIDTH}")
+    _check_width("row_stats", N)
     rowsum = torch.zeros(M, dtype=torch.int64, device=Z.device)
     below = torch.zeros(M, dtype=torch.int64, device=Z.device)
     if M == 0:
         return rowsum.float(), below.float()
-    # the kernel's byte compare takes tokens 0..q only
-    words = pack_tokens(_states_up_to(Z, q))
+    words = pack_tokens(Z, q)
     fn = _lib("row_stats", "gdca_row_stats",
               [_P, _I, _I, _I, _F, _I, _P, _P, _P])
     with torch.cuda.device(Z.device):
@@ -178,10 +183,12 @@ row_stats.launches = 0
 
 
 def row_stats_rect_packed(A: torch.Tensor, B: torch.Tensor, n_true: int,
-                          thresh):
-    """``row_stats_rect`` on packed words (``pack_tokens``) on one CUDA
-    device: the mesh path packs the tokens once per device and passes
-    each shard's row block as a slice of them."""
+                          thresh, q: int = 31):
+    """``row_stats_rect`` on packed words (``pack_tokens(Z, q)``) on one
+    CUDA device: the mesh path packs the tokens once per device and passes
+    each shard's row block as a slice of them (a row slice of packed words
+    keeps kernel C's 16-byte alignment: a packed row is a multiple of 64
+    bytes)."""
     if (A.dtype != torch.int32 or B.dtype != torch.int32 or A.dim() != 2
             or B.dim() != 2 or A.shape[1] != B.shape[1]):
         raise ValueError("row_stats_rect_packed: expected int32 words "
@@ -190,16 +197,21 @@ def row_stats_rect_packed(A: torch.Tensor, B: torch.Tensor, n_true: int,
     if A.device.type != "cuda" or B.device != A.device:
         raise ValueError("row_stats_rect_packed: A and B must lie on one "
                          f"CUDA device, got {A.device} and {B.device}")
+    _check_states("row_stats_rect", q)
+    _check_width("row_stats_rect", int(n_true))
     A, B = A.contiguous(), B.contiguous()
+    if B.data_ptr() % 16:
+        raise ValueError("row_stats_rect_packed: B's words must be 16-byte "
+                         "aligned")
     Ma, Mb = A.shape[0], B.shape[0]
     rowsum = torch.zeros(Ma, dtype=torch.int64, device=A.device)
     below = torch.zeros(Ma, dtype=torch.int64, device=A.device)
     if Ma and Mb:
         fn = _lib("row_stats_rect", "gdca_row_stats_rect",
-                  [_P, _I, _P, _I, _I, _I, _F, _P, _P, _P])
+                  [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P])
         with torch.cuda.device(A.device):
             err = fn(A.data_ptr(), Ma, B.data_ptr(), Mb, A.shape[1],
-                     int(n_true), float(thresh), rowsum.data_ptr(),
+                     int(n_true), float(thresh), q, rowsum.data_ptr(),
                      below.data_ptr(),
                      torch.cuda.current_stream(A.device).cuda_stream)
         if err != 0:
@@ -210,8 +222,9 @@ def row_stats_rect_packed(A: torch.Tensor, B: torch.Tensor, n_true: int,
 
 
 def row_stats_rect(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
-                   n_true=None):
-    """(rowsum [Ma] f32, below [Ma] f32) of A's rows against all of B's:
+                   n_true=None, *, q: int = 31):
+    """(rowsum [Ma] f32, below [Ma] f32) of A's rows against all of B's
+    over states 1..q (1 <= q <= 31; tokens above q match nothing):
     ``rowsum[a] = sum_b matches(a, b)``, ``below[a] = #{b : n_true -
     matches(a, b) < thresh}`` (``n_true`` defaults to N). CPU tensors take
     ``row_stats_rect_torch``; CUDA tensors launch kernel C (build and
@@ -221,25 +234,25 @@ def row_stats_rect(ZA: torch.Tensor, ZB: torch.Tensor, thresh,
         raise ValueError(
             f"row_stats_rect: ZA {tuple(ZA.shape)} on {ZA.device} and ZB "
             f"{tuple(ZB.shape)} on {ZB.device} need one width and device")
+    _check_states("row_stats_rect", q)
     n = ZA.shape[1] if n_true is None else int(n_true)
     if ZA.device.type == "cpu":
-        return row_stats_rect_torch(ZA, ZB, thresh, n)
-    B = pack_tokens(ZB)
-    A = B if ZA is ZB else pack_tokens(ZA)
-    return row_stats_rect_packed(A, B, n, thresh)
+        return row_stats_rect_torch(ZA, ZB, thresh, n, q=q)
+    _check_width("row_stats_rect", ZA.shape[1])
+    B = pack_tokens(ZB, q)
+    A = B if ZA is ZB else pack_tokens(ZA, q)
+    return row_stats_rect_packed(A, B, n, thresh, q)
 
 
 row_stats_rect.launches = 0
 
 
 def row_stats_full(Z: torch.Tensor, thresh, q: int = 31):
-    """The full-grid square row stats (the port of ``row_stats_pallas``):
-    ``row_stats_rect(Z, Z, ...)``, the same result as ``row_stats`` for
-    twice its tile pairs. No pipeline path calls it: a caller passes it
-    as ``row_stats_fn``. ``q`` serves that contract only: every token
-    1..31 counts, as in kernel C (an alignment over states 1..q holds no
-    other)."""
-    return row_stats_rect(Z, Z, thresh)
+    """The full-grid square row stats over states 1..q (the port of
+    ``row_stats_pallas``): ``row_stats_rect(Z, Z, ..., q=q)``, the same
+    result as ``row_stats(Z, thresh, q)`` for twice its tile pairs. No
+    pipeline path calls it: a caller passes it as ``row_stats_fn``."""
+    return row_stats_rect(Z, Z, thresh, q=q)
 
 
 def _one_hot(Z: torch.Tensor, q: int, dtype) -> torch.Tensor:
@@ -253,36 +266,39 @@ def _one_hot(Z: torch.Tensor, q: int, dtype) -> torch.Tensor:
 
 # --- kernel D: dense identity counts ------------------------------------
 
-def match_counts_torch(Z: torch.Tensor, *, row_chunk: int = 4096
-                       ) -> torch.Tensor:
-    """Plain PyTorch ``match_counts``: a row-chunked one-hot f32 product,
-    exact (0/1 products summed in f32 while N < 2^24)."""
+def match_counts_torch(Z: torch.Tensor, q: int = 31, *,
+                       row_chunk: int = 4096) -> torch.Tensor:
+    """Plain PyTorch ``match_counts``: a row-chunked one-hot f32 product
+    over states 1..q, exact (0/1 products summed in f32 while N < 2^24)."""
     M = Z.shape[0]
     out = torch.empty((M, M), dtype=torch.int32, device=Z.device)
     if M == 0:
         return out
-    E = _one_hot(Z, max(int(Z.max()), 1), torch.float32)
+    E = _one_hot(Z, q, torch.float32)
     for r0 in range(0, M, row_chunk):
         out[r0:r0 + row_chunk] = (E[r0:r0 + row_chunk] @ E.T).to(torch.int32)
     return out
 
 
-def match_counts(Z: torch.Tensor) -> torch.Tensor:
+def match_counts(Z: torch.Tensor, q: int = 31) -> torch.Tensor:
     """[M, M] int32: ``out[a, b] = matches(a, b)`` of token matrix Z
-    (uint8 or int8, states 0..31; token 0 matches nothing). CPU tensors
-    take ``match_counts_torch``; CUDA tensors launch kernel D (build and
-    launch errors raise)."""
+    (uint8 or int8, states 0..31; token 0 matches nothing) over states
+    1..q (1 <= q <= 31; tokens above q match nothing). CPU tensors take
+    ``match_counts_torch``; CUDA tensors launch kernel D (build and launch
+    errors raise)."""
     _check_tokens("match_counts", Z)
+    _check_states("match_counts", q)
     if Z.device.type == "cpu":
-        return match_counts_torch(Z)
-    M = Z.shape[0]
+        return match_counts_torch(Z, q)
+    M, N = Z.shape
+    _check_width("match_counts", N)
     out = torch.empty((M, M), dtype=torch.int32, device=Z.device)
     if M == 0:
         return out
-    words = pack_tokens(Z)
-    fn = _lib("match_counts", "gdca_match_counts", [_P, _I, _I, _P, _P])
+    words = pack_tokens(Z, q)
+    fn = _lib("match_counts", "gdca_match_counts", [_P, _I, _I, _I, _P, _P])
     with torch.cuda.device(Z.device):
-        err = fn(words.data_ptr(), M, words.shape[1], out.data_ptr(),
+        err = fn(words.data_ptr(), M, words.shape[1], q, out.data_ptr(),
                  torch.cuda.current_stream(Z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

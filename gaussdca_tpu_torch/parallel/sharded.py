@@ -59,29 +59,28 @@ def _even_bounds(n: int, ndev: int, per: int) -> Bounds:
 
 
 def _row_stats_sharded(mesh: Mesh, Z_on: dict, m_loc: int) -> Callable:
-    """``fn(Z, thresh, q) -> (rowsum, below)`` over all rows, on the home
-    device: shard d computes its row block against all rows. On a card
-    the tokens are packed once per device (``pack_tokens``) and each
-    shard's block is a slice of them. Kernel C counts every token 1..31,
-    so ``q`` serves the ``row_stats_fn`` contract only (an alignment over
-    states 1..q holds no other)."""
+    """``fn(Z, thresh, q) -> (rowsum, below)`` over all rows and states
+    1..q, on the home device: shard d computes its row block against all
+    rows. On a card each call packs the tokens once per device
+    (``pack_tokens``, tokens above q zeroed) and each shard's block is a
+    slice of them."""
     N = Z_on[mesh.home].shape[1]
     cuda = mesh.home.type == "cuda"
-    words = {dev: distance.pack_tokens(Z) for dev, Z in Z_on.items()} \
-        if cuda else None
 
     def fn(Z: torch.Tensor, thresh, q: int):
         if Z.shape != Z_on[mesh.home].shape:
             raise ValueError("sharded row stats: unexpected token matrix")
+        words = {dev: distance.pack_tokens(Zd, q)
+                 for dev, Zd in Z_on.items()} if cuda else None
         parts = []
         for d, dev in enumerate(mesh.flat):
             rows = slice(d * m_loc, (d + 1) * m_loc)
             if cuda:
                 parts.append(distance.row_stats_rect_packed(
-                    words[dev][rows], words[dev], N, thresh))
+                    words[dev][rows], words[dev], N, thresh, q))
             else:
                 parts.append(distance.row_stats_rect(
-                    Z_on[dev][rows], Z_on[dev], thresh))
+                    Z_on[dev][rows], Z_on[dev], thresh, q=q))
         return tuple(all_gather([p[k] for p in parts], mesh.home)
                      for k in range(2))
     return fn

@@ -40,10 +40,12 @@ AUTO_THETA_COEFF = 0.38 * 0.32  # = 0.1216, the reference's auto-theta constant
 def total_matches_closed_form(Z: torch.Tensor, q: int) -> int:
     """``sum_{a,b} matches(a, b)`` over all ordered row pairs (a = b
     included), as an exact integer: ``sum_k sum_{c=1..q} n_kc^2`` with
-    ``n_kc = #{a : Z[a, k] = c}``, counted in int64 (token 0 excluded)."""
+    ``n_kc = #{a : Z[a, k] = c}``, counted in int64 (token 0 and tokens
+    above q excluded)."""
     M, N = Z.shape
     offsets = torch.arange(N, device=Z.device, dtype=torch.int64) * (q + 1)
-    idx = (Z.to(torch.int64) + offsets).reshape(-1)
+    Zq = Z.view(torch.uint8).to(torch.int64)
+    idx = (Zq.masked_fill_(Zq > q, 0) + offsets).reshape(-1)
     n = torch.bincount(idx, minlength=N * (q + 1)).reshape(N, q + 1)[:, 1:]
     return int((n * n).sum())
 
@@ -128,10 +130,12 @@ def compute_weights(
     q: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(W [M], Meff, resolved theta) through the [M, M] count matrix.
-    ``match_counts_fn(Z) -> [M, M]`` defaults to ``match_counts``;
-    auto-theta comes from the streaming path's closed form (``q=None``
-    scans the full 1..31 state range)."""
-    counts = (match_counts_fn or match_counts)(Z)
-    th = _resolve_theta(Z, theta, q or 31, None, dtype)
+    ``match_counts_fn(Z) -> [M, M]`` defaults to ``match_counts`` over
+    states 1..q; auto-theta comes from the streaming path's closed form
+    (``q=None`` takes the full 1..31 state range in both)."""
+    q = q or 31
+    counts = (match_counts_fn(Z) if match_counts_fn
+              else match_counts(Z, q))
+    th = _resolve_theta(Z, theta, q, None, dtype)
     W, Meff = weights_from_matches(counts, Z.shape[1], th, dtype)
     return W, Meff, th

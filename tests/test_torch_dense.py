@@ -246,3 +246,36 @@ def test_weights_from_matches_matches_jax(theta):
                                          F64, row_chunk=32)
     np.testing.assert_array_equal(W1.numpy(), np.asarray(W0))
     np.testing.assert_allclose(float(Meff1), float(Meff0), rtol=1e-13)
+
+
+@pytest.mark.parametrize("q", [9, 21])
+@pytest.mark.parametrize("M,N", [(130, 40), (77, 19)])
+def test_match_counts_tokens_above_q_match_nothing(q, M, N):
+    """``match_counts(Z, q)`` equals the TPU kernel run in interpret mode
+    with the same q, on tokens 1..31: a token above q matches nothing.
+    The default q = 31 counts every token."""
+    Z = _tokens(M, N, 31, seed=M + q, pad_rows=3)
+    got = tdist.match_counts(torch.as_tensor(Z), q)
+    want = np.asarray(jdist.match_counts_pallas(
+        jnp.asarray(Z.astype(np.int8)), q, tile_m=128, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (tdist.match_counts(torch.as_tensor(Z)).numpy() >= want).all()
+    assert int(tdist.match_counts(torch.as_tensor(Z)).sum()) > int(want.sum())
+
+
+@pytest.mark.parametrize("theta", [0.2, "auto"])
+def test_compute_weights_counts_states_up_to_q(theta):
+    """The dense ``compute_weights(..., q=q)`` hands q to its default
+    ``match_counts``: on tokens 1..31, W, Meff and theta equal the JAX
+    dense weights on the TPU kernel (interpret mode) with the same q."""
+    q = 9
+    Z = _tokens(90, 23, 31, seed=5, pad_rows=2)
+    W0, Meff0, th0 = jrw.compute_weights(
+        jnp.asarray(Z.astype(np.int8)), theta, dtype=jnp.float64, q=q,
+        match_counts_fn=lambda z: jdist.match_counts_pallas(
+            z, q, tile_m=128, interpret=True))
+    W1, Meff1, th1 = trw.compute_weights(torch.as_tensor(Z), theta,
+                                         dtype=F64, q=q)
+    np.testing.assert_allclose(W1.numpy(), np.asarray(W0), rtol=1e-12)
+    np.testing.assert_allclose(float(Meff1), float(Meff0), rtol=1e-12)
+    np.testing.assert_allclose(float(th1), float(th0), rtol=1e-12)

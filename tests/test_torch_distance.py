@@ -115,25 +115,32 @@ def test_fragment_byte_test_is_exact():
                 byte, np.where(wa[:, k] == wb[:, k], 0x80, 0))
 
 
-def _row_stats_by_fragments(Z, thresh, q):
-    """Kernel A's arithmetic in numpy: tokens above q zeroed and packed
-    (``pack_tokens``), then for each 32-column chunk (8 words) and state
-    c = 1..q the fragments ``_equal80(word, c * 0x01010101)`` read as s8
-    bytes, multiplied in int64 ((-128)^2 = 2^14 a match) and summed."""
-    Zt = torch.as_tensor(Z)
-    words = tdist.pack_tokens(torch.where(Zt <= q, Zt, 0)).numpy().view(
-        np.uint32)
-    M, W = words.shape
-    assert W % 8 == 0
-    acc = np.zeros((M, M), np.int64)
+def _counts_by_fragments(ZA, ZB, q):
+    """The tensor-core tile's arithmetic (``onehot_wgmma.cuh``) in numpy:
+    tokens packed with those above q zeroed (``pack_tokens(Z, q)``), then
+    for each 32-column chunk (8 words) and state c = 1..q the fragments
+    ``_equal80(word, c * 0x01010101)`` of A's and B's rows read as s8
+    bytes, multiplied in int64 ((-128)^2 = 2^14 a match) and summed;
+    returns the [Ma, Mb] match counts."""
+    wa, wb = (tdist.pack_tokens(torch.as_tensor(Z), q).numpy().view(
+        np.uint32) for Z in (ZA, ZB))
+    W = wa.shape[1]
+    assert W % 8 == 0 and wb.shape[1] == W
+    acc = np.zeros((wa.shape[0], wb.shape[0]), np.int64)
     for w0 in range(0, W, 8):
-        chunk = words[:, w0:w0 + 8]
         for c in range(1, q + 1):
-            frag = _equal80(chunk, np.uint32(0x01010101 * c))
-            E = frag.view(np.int8).reshape(M, 32).astype(np.int64)
-            acc += E @ E.T
+            ea, eb = (_equal80(w[:, w0:w0 + 8], np.uint32(0x01010101 * c))
+                      .view(np.int8).reshape(-1, 32).astype(np.int64)
+                      for w in (wa, wb))
+            acc += ea @ eb.T
     assert (acc % (1 << 14) == 0).all()
-    D = acc >> 14
+    return acc >> 14
+
+
+def _row_stats_by_fragments(Z, thresh, q):
+    """Kernel A's arithmetic in numpy: ``_counts_by_fragments(Z, Z, q)``,
+    then the row sums and the strict f32 neighbour test."""
+    D = _counts_by_fragments(Z, Z, q)
     N = Z.shape[1]
     return (D.sum(1).astype(np.float32),
             ((N - D).astype(np.float32) < np.float32(thresh)).sum(1)
@@ -232,3 +239,111 @@ def test_every_row_stats_fn_gets_q(fn):
     np.testing.assert_allclose(W1.numpy(), np.asarray(W0), rtol=1e-12)
     np.testing.assert_allclose(float(Meff1), float(Meff0), rtol=1e-12)
     np.testing.assert_allclose(float(th1), float(th0), rtol=1e-12)
+
+
+def _epilogue_layout():
+    """(r, c) [256, 64]: the tile row and column of accumulator i of
+    thread t in ``count_tile``'s layout: d[4 j + e] is row 16 warp + g +
+    8 (e / 2), column 8 j + 2 q4 + (e % 2)."""
+    t, i = np.meshgrid(np.arange(256), np.arange(64), indexing="ij")
+    warp, g, q4 = t // 32, (t % 32) // 4, t % 4
+    j, e = i // 4, i % 4
+    return 16 * warp + g + 8 * (e // 2), 8 * j + 2 * q4 + e % 2
+
+
+def test_epilogue_layout_covers_the_tile_once():
+    r, c = _epilogue_layout()
+    hits = np.zeros((128, 128), np.int64)
+    np.add.at(hits, (r, c), 1)
+    assert (hits == 1).all()
+
+
+def _tile_of(Z, t0, M):
+    """Rows t0 .. t0 + 127 of Z, rows past M read as token 0."""
+    out = np.zeros((128, Z.shape[1]), Z.dtype)
+    out[:max(0, min(128, M - t0))] = Z[t0:t0 + 128]
+    return out
+
+
+@pytest.mark.parametrize("Ma,Mb,N,q", [
+    (45, 300, 37, 9),      # one A tile, ragged B tiles
+    (130, 70, 61, 21),     # Mb < 128: the B tile is mostly padding
+    (257, 129, 20, 31),
+])
+def test_rect_fragment_emulation(Ma, Mb, N, q):
+    """Kernel C's arithmetic in numpy on different A and B with tokens
+    1..31: its flat grid (tile t -> A tile t % Ta, B tile t / Ta), the
+    fragment product of each tile, columns past Mb masked, row sums over
+    the layout of ``count_tile``; equal to the plain version and to the
+    JAX kernel in interpret mode with the same q."""
+    ZA = _tokens(Ma, N, 31, seed=Ma + q, pad_rows=2)
+    ZB = _tokens(Mb, N, 31, seed=Mb + q, pad_rows=3)
+    thresh = _threshold(ZB, 31, 0.3)
+    r, c = _epilogue_layout()
+    Ta, Tb = -(-Ma // 128), -(-Mb // 128)
+    rs = np.zeros(Ma, np.int64)
+    below = np.zeros(Ma, np.int64)
+    for t in range(Ta * Tb):
+        a0, b0 = (t % Ta) * 128, (t // Ta) * 128
+        D = _counts_by_fragments(_tile_of(ZA, a0, Ma), _tile_of(ZB, b0, Mb),
+                                 q)[r, c]
+        ok = (b0 + c < Mb) & (a0 + r < Ma)
+        np.add.at(rs, (a0 + r)[ok], D[ok])
+        np.add.at(below, (a0 + r)[ok],
+                  (np.float32(N) - D[ok].astype(np.float32)
+                   < np.float32(thresh)))
+    t_rs, t_below = tdist.row_stats_rect_torch(
+        torch.as_tensor(ZA), torch.as_tensor(ZB), thresh, q=q)
+    np.testing.assert_array_equal(rs.astype(np.float32), t_rs.numpy())
+    np.testing.assert_array_equal(below.astype(np.float32),
+                                  t_below.numpy())
+    j_rs, j_below = jdist.row_stats_rect_pallas(
+        jnp.asarray(ZA.astype(np.int8)), jnp.asarray(ZB.astype(np.int8)),
+        jnp.float32(thresh), q, tile_m=128, interpret=True)
+    np.testing.assert_array_equal(t_rs.numpy(), np.asarray(j_rs))
+    np.testing.assert_array_equal(t_below.numpy(), np.asarray(j_below))
+
+
+def _triangle_tile(t):
+    """Kernel A's and D's tile t of the upper triangle (column-major),
+    computed as the kernel does: a float estimate, then integer fixes."""
+    tj = int((np.sqrt(8.0 * t + 1.0) - 1.0) * 0.5)
+    while (tj + 1) * (tj + 2) // 2 <= t:
+        tj += 1
+    while tj * (tj + 1) // 2 > t:
+        tj -= 1
+    return t - tj * (tj + 1) // 2, tj
+
+
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 300])
+def test_match_counts_triangle_cover(M):
+    """Kernel D's cover in numpy: the blocks of the upper triangle of
+    128-row tiles, each writing its fragment-product tile at (a0 + r, b0 +
+    c) and, off the diagonal, transposed at (b0 + c, a0 + r), rows and
+    columns past M masked on both writes. Every entry is written exactly
+    once and equals ``match_counts_torch`` (tokens 1..31, q = 21)."""
+    N, q = 40, 21
+    Z = _tokens(M, N, 31, seed=M, pad_rows=min(3, M - 1))
+    r, c = _epilogue_layout()
+    T = -(-M // 128)
+    out = np.full((M, M), -1, np.int64)
+    writes = np.zeros((M, M), np.int64)
+    tiles = set()
+    for t in range(T * (T + 1) // 2):
+        ti, tj = _triangle_tile(t)
+        assert ti <= tj < T
+        tiles.add((ti, tj))
+        a0, b0 = ti * 128, tj * 128
+        D = _counts_by_fragments(_tile_of(Z, a0, M), _tile_of(Z, b0, M),
+                                 q)[r, c]
+        ok = (a0 + r < M) & (b0 + c < M)
+        rows, cols, vals = (a0 + r)[ok], (b0 + c)[ok], D[ok]
+        out[rows, cols] = vals
+        np.add.at(writes, (rows, cols), 1)
+        if ti != tj:
+            out[cols, rows] = vals
+            np.add.at(writes, (cols, rows), 1)
+    assert len(tiles) == T * (T + 1) // 2
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(
+        out, tdist.match_counts_torch(torch.as_tensor(Z), q).numpy())

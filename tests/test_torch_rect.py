@@ -138,3 +138,99 @@ def test_pipeline_ignores_the_jax_kernel_switch(monkeypatch, impl):
     assert calls == ["row_stats", "row_stats"]
     assert float(m0) == float(m1) and float(th0) == float(th1)
     assert torch.equal(S0, S1)
+
+
+def _tokens_all_states(M, N, seed, pad_rows=0):
+    """Tokens 1..31 (so that tokens above q occur for q < 31), families,
+    and ``pad_rows`` token-0 rows at the end."""
+    return _tokens(M, N, 31, seed, pad_rows=pad_rows)
+
+
+@pytest.mark.parametrize("q", [9, 21])
+@pytest.mark.parametrize("Mb,rows", [(200, (70, 170)), (150, None)])
+def test_row_stats_rect_tokens_above_q_match_nothing(q, Mb, rows):
+    """``row_stats_rect(ZA, ZB, t, q=q)`` equals the TPU kernel run in
+    interpret mode with the same q, on tokens 1..31: a token above q
+    matches nothing. Every token counts with the default q = 31."""
+    N = 45
+    ZB = _tokens_all_states(Mb, N, seed=q + Mb, pad_rows=4)
+    ZA = (ZB[rows[0]:rows[1]] if rows is not None
+          else _tokens_all_states(61, N, seed=q))
+    A, B = torch.as_tensor(ZA), torch.as_tensor(ZB)
+    for theta in (0.2, 0.5):
+        thresh = float(np.float32(np.floor(theta * N)))
+        rs, below = tdist.row_stats_rect(A, B, thresh, q=q)
+        rs_p, below_p = jdist.row_stats_rect_pallas(
+            jnp.asarray(ZA.astype(np.int8)), jnp.asarray(ZB.astype(np.int8)),
+            jnp.float32(thresh), q, tile_m=128, interpret=True)
+        np.testing.assert_array_equal(rs.numpy(), np.asarray(rs_p))
+        np.testing.assert_array_equal(below.numpy(), np.asarray(below_p))
+    every, _ = tdist.row_stats_rect(A, B, thresh)
+    assert float(every.sum()) > float(rs.sum())
+
+
+@pytest.mark.parametrize("q", [9, 21, 31])
+def test_row_stats_full_counts_states_up_to_q(q):
+    """``row_stats_full(Z, t, q)`` equals ``row_stats(Z, t, q)`` and the
+    JAX ``row_stats_pallas`` with the same q on tokens 1..31."""
+    Z = _tokens_all_states(140, 29, seed=q, pad_rows=3)
+    thresh = _threshold(Z, 31, 0.3)
+    full = tdist.row_stats_full(torch.as_tensor(Z), thresh, q)
+    for a, b in zip(full, tdist.row_stats(torch.as_tensor(Z), thresh, q)):
+        assert torch.equal(a, b)
+    want = jdist.row_stats_pallas(jnp.asarray(Z.astype(np.int8)),
+                                  jnp.float32(thresh), q, tile_m=128,
+                                  interpret=True)
+    for g, w in zip(full, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_rect_and_match_counts_check_q():
+    Z = torch.as_tensor(_tokens_all_states(20, 9, seed=1))
+    for bad in (0, 32):
+        with pytest.raises(ValueError, match="q must be"):
+            tdist.row_stats_rect(Z, Z, 3.0, q=bad)
+        with pytest.raises(ValueError, match="q must be"):
+            tdist.row_stats_full(Z, 3.0, bad)
+        with pytest.raises(ValueError, match="q must be"):
+            tdist.match_counts(Z, bad)
+
+
+@pytest.mark.parametrize("q", [9, 21])
+@pytest.mark.parametrize("theta", [0.2, 0.4])
+def test_mesh_row_stats_fn_passes_q(q, theta):
+    """The mesh's ``row_stats_fn`` (4 shards on a CPU mesh, M = 62 padded
+    to 64) counts states 1..q: W, Meff and theta equal the JAX sharded
+    reweighting (``shard_map`` of the Pallas rect kernel, interpret mode,
+    over the 8 virtual devices) with the same q, on tokens 1..31."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from gaussdca_tpu.parallel import mesh as jmesh
+    from gaussdca_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from gaussdca_tpu.stats import reweight as jrw
+    from gaussdca_tpu_torch.parallel import mesh as tmesh
+    from gaussdca_tpu_torch.parallel import sharded as tsharded
+
+    M, N = 62, 27
+    Z = tsharded.pad_rows(torch.as_tensor(_tokens_all_states(M, N, seed=q)),
+                          4)
+    cpu = torch.device("cpu")
+    fn = tsharded._row_stats_sharded(tmesh.Mesh([cpu] * 4, (2, 2)),
+                                     {cpu: Z}, Z.shape[0] // 4)
+    W1, Meff1, th1 = trw.compute_weights_streaming(
+        Z, theta, q, dtype=torch.float64, row_stats_fn=fn, m_true=M)
+
+    rows = (DATA_AXIS, MODEL_AXIS)
+    local = shard_map(
+        lambda zl, zf, t: jdist.row_stats_rect_pallas(
+            zl, zf, t, q, tile_m=128, interpret=True),
+        mesh=jmesh.make_mesh(8, shape=(4, 2)),
+        in_specs=(P(rows, None), P(), P()), out_specs=(P(rows), P(rows)),
+        check_vma=False)
+    W0, Meff0, th0 = jrw.compute_weights_streaming(
+        jnp.asarray(Z.numpy().astype(np.int8)), theta, q,
+        lambda z, t, _q: local(z, z, t), dtype=jnp.float64, m_true=M)
+    np.testing.assert_array_equal(W1.numpy(), np.asarray(W0))
+    assert float(Meff1) == pytest.approx(float(Meff0), rel=1e-13)
+    assert float(th1) == float(th0)
