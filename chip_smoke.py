@@ -28,12 +28,14 @@ prints no result line):
    (kernel F), each equal to its plain version and to kernel A at five
    shapes (ragged M, token-0 pad rows, q = 21 / 29 / 31, for E a width
    where its plan groups k >= 2 row tiles and one where it has no plan;
-   D also on tokens 1..31 at q = 9, 21 and 31, its rows equal to kernel
-   A's),
-   then at the main shape M=32768, N=384, q=21 (E and F equal to kernel
-   A, D's row sums and neighbour counts equal to kernel A's, and D equal
-   to the one one-hot ``torch.matmul`` timed as its library call); then
-   the median times of kernel and plain version at the main-path shapes;
+   D, E and F also on tokens 1..31 at q = 9, 21 and 31, D's rows and E
+   and F equal to kernel A's),
+   then at the main shape M=32768, N=384 (E and F equal to their plain
+   versions and to kernel A on tokens 1..31 at q = 9, 21 and 31; at q=21
+   D's row sums and neighbour counts equal to kernel A's, and D equal to
+   the one-hot ``torch.matmul`` in f32 and to ``torch._int_mm`` on the
+   int8 one-hot, its two library calls); then the median times of kernel
+   and plain version at the main-path shapes;
 4. single device: the four golden configs through ``gdca(...,
    device="cuda")``, f64 with the CPU suite's gate (same pair set, rtol
    1e-6), f32 with the same pair set and max abs error <= 5e-4 (small) /
@@ -549,16 +551,19 @@ def phase_dense_kernels(dev):
             Z = np.concatenate([Z, np.zeros((pad, N), np.uint8)])
         Zt = torch.as_tensor(Z, device=dev)
         k = distance.plan_asym(N)
-        # kernel D on tokens 1..31 at each q of kernel A (tokens above q
-        # match nothing): equal to its plain version, rows equal to A's
+        # kernels D, E and F on tokens 1..31 at each q of kernel A (tokens
+        # above q match nothing): equal to their plain versions, their rows
+        # equal to A's
         Z31 = family_tokens(M, N, 31, seed=3 * M + N + 1)
         if pad:
             Z31 = np.concatenate([Z31, np.zeros((pad, N), np.uint8)])
         Z31 = torch.as_tensor(Z31, device=dev)
         thresh = float(np.float32(np.floor(0.2 * N)))
         for qk in A_STATES:
+            what = f"M={M + pad} N={N} tokens 1..31 q={qk}"
             err["match_counts"] = max(err["match_counts"], _dense_check(
-                Z31, qk, thresh, f"M={M + pad} N={N} tokens 1..31 q={qk}"))
+                Z31, qk, thresh, what))
+            _asym_e8_check(Z31, qk, thresh, err, what)
         D = distance.match_counts(Zt, q)
         err["match_counts"] = max(err["match_counts"], _dense_check(
             Zt, q, None, f"M={M + pad} N={N} tokens 1..{q} q={q}", D))
@@ -568,10 +573,10 @@ def phase_dense_kernels(dev):
             thresh = float(np.float32(np.floor(theta * N)))
             what = f"M={M + pad} N={N} q={q} thresh={thresh}"
             A = distance.row_stats(Zt, thresh, q)
-            E = distance.row_stats_asym(Zt, thresh)
+            E = distance.row_stats_asym(Zt, thresh, q)
             F = distance.row_stats_e8(planes, N, thresh)
             err["row_stats_asym"] = max(err["row_stats_asym"], _equal_stats(
-                E, distance.row_stats_asym_torch(Zt, thresh, k),
+                E, distance.row_stats_asym_torch(Zt, thresh, k, q),
                 f"row_stats_asym vs plain, {what}"))
             err["row_stats_sym_e8"] = max(
                 err["row_stats_sym_e8"], _equal_stats(
@@ -586,16 +591,26 @@ def phase_dense_kernels(dev):
             f"{', no plan: kernel A' if k < 2 else ''}), row_stats_sym_e8 "
             f"== plain and == row_stats at M={M} N={N} q={q} (+{pad} "
             f"token-0 rows), theta 0 / 0.2 / auto={th_auto:.4f} / 0.7; "
-            f"match_counts == plain and its rows == row_stats on tokens "
-            f"1..31 at q {' / '.join(map(str, A_STATES))}")
+            f"match_counts, row_stats_asym and row_stats_sym_e8 == plain "
+            f"and their rows == row_stats on tokens 1..31 at q "
+            f"{' / '.join(map(str, A_STATES))}")
 
-    # --- the main shape: equal to kernel A, then times
+    # --- the main shape: E and F on tokens 1..31 at each q, equal to their
+    # plain versions and kernel A; then at q = 21
+    Z31 = torch.as_tensor(family_tokens(32768, 384, 31, seed=7), device=dev)
+    thresh = float(np.floor(0.2 * 384))
+    for qk in A_STATES:
+        _asym_e8_check(Z31, qk, thresh, err, f"M=32768 N=384 tokens 1..31 "
+                       f"q={qk}")
+    del Z31
+    log(f"[kernels] at M=32768 N=384 tokens 1..31 thresh={thresh}: "
+        "row_stats_asym and row_stats_sym_e8 == plain == row_stats at q "
+        f"{' / '.join(map(str, A_STATES))}")
     Z = torch.as_tensor(family_tokens(32768, 384, 21, seed=1), device=dev)
     M, N, q = Z.shape[0], Z.shape[1], 21
     k = distance.plan_asym(N)
-    thresh = float(np.floor(0.2 * N))
     A = distance.row_stats(Z, thresh)
-    _equal_stats(distance.row_stats_asym(Z, thresh), A,
+    _equal_stats(distance.row_stats_asym(Z, thresh, q), A,
                  "row_stats_asym vs row_stats at the main shape")
     planes = distance.one_hot_planes(Z, q)
     _equal_stats(distance.row_stats_e8(planes, N, thresh), A,
@@ -604,16 +619,18 @@ def phase_dense_kernels(dev):
     _equal_stats((D.sum(1, dtype=torch.int64).float(),
                   ((N - D) < thresh).sum(1).float()), A,
                  "match_counts rows vs row_stats at the main shape")
-    if not torch.equal(match_counts_library(Z, q), D):
-        raise AssertionError("the one-hot torch.matmul counts differ from "
-                             "match_counts at the main shape")
+    for lib in (match_counts_library, match_counts_int_mm):
+        if not torch.equal(lib(Z, q), D):
+            raise AssertionError(f"{lib.__name__} differs from match_counts "
+                                 "at the main shape")
     del D
     log(f"[kernels] at M={M} N={N} q={q} thresh={thresh}: row_stats_asym "
         f"(k={k}), row_stats_sym_e8 and the rows of match_counts == "
-        "row_stats")
-    ms_e = cuda_ms(lambda: distance.row_stats_asym(Z, thresh), reps=5)
-    plain_e = cuda_ms(lambda: distance.row_stats_asym_torch(Z, thresh, k),
-                      reps=3)
+        "row_stats; match_counts == one-hot f32 torch.matmul == "
+        "torch._int_mm")
+    ms_e = cuda_ms(lambda: distance.row_stats_asym(Z, thresh, q), reps=5)
+    plain_e = cuda_ms(
+        lambda: distance.row_stats_asym_torch(Z, thresh, k, q), reps=3)
     ms_f = cuda_ms(lambda: distance.row_stats_e8(planes, N, thresh), reps=5)
     plain_f = cuda_ms(lambda: distance.row_stats_e8_torch(planes, N,
                                                           thresh), reps=3)
@@ -621,7 +638,8 @@ def phase_dense_kernels(dev):
     del planes
     ms_d = cuda_ms(lambda: distance.match_counts(Z, q), reps=5)
     plain_d = cuda_ms(lambda: distance.match_counts_torch(Z, q), reps=3)
-    lib_d = cuda_ms(lambda: match_counts_library(Z, q), reps=3)
+    lib_d = cuda_ms(lambda: match_counts_int_mm(Z, q), reps=3)
+    lib_d_f32 = cuda_ms(lambda: match_counts_library(Z, q), reps=3)
     # E: kernel A's half grid (M^2 N q int8 operations as the JAX kernel
     # counts them); reads Z once, writes two [M] results
     bound_e = bound(M * N + 8 * M, M * M * N * q, INT8_OPS_S)
@@ -640,7 +658,8 @@ def phase_dense_kernels(dev):
         f"ms): kernel {ms_f:.3f} ms, plain {plain_f:.3f} ms; bound "
         f"{bound_f[0]:.2f} ms ({bound_f[1]})")
     log(f"[kernels] match_counts M={M} N={N} q={q}: kernel {ms_d:.3f} ms, "
-        f"plain {plain_d:.3f} ms, one one-hot torch.matmul {lib_d:.3f} ms; "
+        f"plain {plain_d:.3f} ms, library: one-hot torch._int_mm "
+        f"{lib_d:.3f} ms, one-hot f32 torch.matmul {lib_d_f32:.3f} ms; "
         f"bound {bound_d[0]:.2f} ms ({bound_d[1]}, the half grid; the full "
         f"grid {2 * M * M * N * q / INT8_OPS_S * 1e3:.2f} ms, the output "
         f"alone {4 * M * M / HBM_BYTES_S * 1e3:.2f} ms), popcount-pipe "
@@ -651,7 +670,8 @@ def phase_dense_kernels(dev):
          "replaces": "gaussdca_tpu/ops/distance.py:804",
          "max_abs_err": err["match_counts"], "ms": ms_d,
          "plain_ms": plain_d, "bound_ms": bound_d[0],
-         "bound_by": bound_d[1], "library_ms": lib_d},
+         "bound_by": bound_d[1], "library_ms": lib_d,
+         "library_f32_ms": lib_d_f32},
         {"name": "row_stats_asym", "route": "cuda",
          "source": "gaussdca_tpu_torch/csrc/row_stats_asym.cu",
          "replaces": "gaussdca_tpu/ops/distance.py:641",
@@ -678,6 +698,37 @@ def match_counts_library(Z, q: int):
     E = (Z[:, :, None] == states).reshape(Z.shape[0], -1).float()
     with full_f32_matmuls():
         return (E @ E.T).to(torch.int32)
+
+
+def match_counts_int_mm(Z, q: int):
+    """Kernel D's counts from one int8 library product, for its
+    ``library_ms`` only: ``torch._int_mm`` of the int8 one-hot over states
+    1..q with its transpose (int32 out, exact; N q a multiple of 8)."""
+    import torch
+
+    states = torch.arange(1, q + 1, dtype=torch.uint8, device=Z.device)
+    E = (Z[:, :, None] == states).reshape(Z.shape[0], -1).to(torch.int8)
+    return torch._int_mm(E, E.T)
+
+
+def _asym_e8_check(Z, q, thresh, err, what):
+    """Kernels E and F at states 1..q equal to their plain versions and to
+    kernel A, exactly; folds their max abs errors into ``err``."""
+    from gaussdca_tpu_torch.ops import distance
+
+    N = Z.shape[1]
+    A = distance.row_stats(Z, thresh, q)
+    E = distance.row_stats_asym(Z, thresh, q)
+    err["row_stats_asym"] = max(err["row_stats_asym"], _equal_stats(
+        E, distance.row_stats_asym_torch(Z, thresh, distance.plan_asym(N), q),
+        f"row_stats_asym vs plain, {what}"))
+    planes = distance.one_hot_planes(Z, q)
+    F = distance.row_stats_e8(planes, N, thresh)
+    err["row_stats_sym_e8"] = max(err["row_stats_sym_e8"], _equal_stats(
+        F, distance.row_stats_e8_torch(planes, N, thresh),
+        f"row_stats_sym_e8 vs plain, {what}"))
+    _equal_stats(E, A, f"row_stats_asym vs row_stats, {what}")
+    _equal_stats(F, A, f"row_stats_sym_e8 vs row_stats, {what}")
 
 
 def planes_width(N: int, q: int) -> int:

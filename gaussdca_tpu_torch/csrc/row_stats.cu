@@ -13,9 +13,9 @@
 //
 // Bound. At M = 32768, N = 384, q = 21 the half grid of the TPU kernel's
 // one-hot products is 8.66e12 int8 operations: 4.38 ms at the dense int8
-// tensor-core rate (1,979 TOP/s). The packed compare that kernel E uses
-// (packed_match.cuh: one popcount per four columns) cannot go below the
-// popcount pipe's 12.3 ms for the same pairs, so this kernel counts on the
+// tensor-core rate (1,979 TOP/s). A packed compare (one popcount per four
+// columns) cannot go below the popcount pipe's 12.3 ms for the same
+// pairs, so this kernel counts on the
 // int8 tensor cores, as the TPU kernel does on its matrix unit.
 //
 // Design. The int8 product over (32-column chunk, state) of one-hot

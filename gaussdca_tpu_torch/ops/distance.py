@@ -33,14 +33,18 @@ Three more kernels port the JAX package's other distance kernels:
   ``match_counts_pallas`` (kernel D, ``csrc/match_counts.cu``: kernel A's
   tile over the upper triangle, each tile written at its place and
   transposed); plain version ``match_counts_torch``.
-- ``row_stats_asym(Z, thresh, q)``: ``row_stats`` over every state by the
-  grouped-row covering of ``row_stats_asym_pallas`` (kernel E,
-  ``csrc/row_stats_asym.cu``; ``plan_asym`` picks the group size against
-  shared memory, and a width with no plan takes ``row_stats``); plain
-  version ``row_stats_asym_torch``, which walks the same covering.
+- ``row_stats_asym(Z, thresh, q)``: ``row_stats`` by the grouped-row
+  covering of ``row_stats_asym_pallas`` (kernel E,
+  ``csrc/row_stats_asym.cu``: two resident 128-row tiles a block share
+  each expansion of a B tile, behind a producer warpgroup and an mbarrier
+  ring; ``plan_asym`` checks the resident words fit shared memory, and a
+  width with no plan takes ``row_stats``); plain version
+  ``row_stats_asym_torch``, which walks the same covering.
 - ``row_stats_sym_e8(Z, thresh, q)``: ``row_stats`` from one-hot planes
   (``one_hot_planes``) on the int8 tensor cores, the port of
-  ``row_stats_sym_e8_pallas`` (kernel F, ``csrc/row_stats_e8.cu``); plain
+  ``row_stats_sym_e8_pallas`` (kernel F, ``csrc/row_stats_e8.cu``: TMA
+  loads into swizzled shared stages, ``wgmma`` with both operands from
+  shared memory, persistent blocks over a grouped tile order); plain
   version ``row_stats_e8_torch`` on the same planes.
 """
 
@@ -53,17 +57,22 @@ import torch
 from gaussdca_tpu_torch.ops import _build
 
 # packed rows of 16 words (64 tokens): a multiple of the 8-word chunk of
-# kernels A, C and D and of kernel E's staging step, and 16-byte aligned
+# kernels A, C, D and E, and 16-byte aligned
 # rows, so a row slice of packed words is aligned too
 _TOKEN_ALIGN = 64
-# kernel E's fine tile (rows) and its shared-memory budget a block: half of
-# an H100 SM's 228 KB less the static and reserved bytes, so two blocks
-# share an SM
-_ASYM_TILE = 64
-_ASYM_SMEM_BUDGET = 233472 // 2 - 2048
-# kernel E's blocks per SM to aim at when a group's window is split
-_ASYM_BLOCKS_PER_SM = 4
-# kernel F walks the plane depth 64 bytes a stage: pad K to a multiple
+# shared memory a block may use on an H100 (dynamic and static)
+_SMEM_PER_BLOCK = 232448
+# kernel E: fine tiles of 128 rows, k = 2 of them resident a block, a ring
+# of 6 stages of expanded B operands, 3 states of 4 KB a stage; its fixed
+# bytes: the alignment slack of the dynamic base, the column partials and
+# the barriers
+_ASYM_TILE = 128
+_ASYM_K = 2
+_ASYM_STAGES = 6
+_ASYM_STAGE_BYTES = 3 * 4096
+_ASYM_SMEM_FIXED = 128 + 2 * 128 * 4 + 2 * 8 * 6
+# the planes' K is padded to a multiple of 64 bytes (kernel F's TMA rows
+# need a multiple of 16; its 128-byte stages zero-fill past K)
 _E8_DEPTH = 64
 # kernels A, C and D sum 2^14 a match in int32: fewer columns than 2^17
 _TC_MAX_WIDTH = 1 << 17
@@ -312,16 +321,22 @@ match_counts.launches = 0
 
 # --- kernel E: grouped-row row statistics --------------------------------
 
+def _asym_stride(W: int) -> int:
+    """Kernel E's row stride of the resident words: W padded to 4 mod 32
+    words, so a warp's fragment reads hit 32 banks."""
+    return W + (4 - W) % 32
+
+
 def plan_asym(N: int) -> int:
-    """Kernel E's group size k for token width N: the largest k in 4, 3,
-    2 whose k resident row tiles and one B tile of packed words fit the
-    shared-memory budget, else 1 (no plan: ``row_stats_asym`` takes
-    ``row_stats``), as ``_plan_asym`` plans against VMEM."""
+    """Kernel E's group size k for token width N: 2 (two resident 128-row
+    tiles, one consumer warpgroup each, as many as the registers hold)
+    when their packed words and the ring of B stages fit a block's shared
+    memory, else 1 (no plan: ``row_stats_asym`` takes ``row_stats``), as
+    ``_plan_asym`` plans against VMEM."""
     W = max(_TOKEN_ALIGN, -(-N // _TOKEN_ALIGN) * _TOKEN_ALIGN) // 4
-    for k in (4, 3, 2):
-        if (k + 1) * _ASYM_TILE * (W + 1) * 4 <= _ASYM_SMEM_BUDGET:
-            return k
-    return 1
+    need = (_ASYM_K * _ASYM_TILE * _asym_stride(W) * 4
+            + _ASYM_STAGES * _ASYM_STAGE_BYTES + _ASYM_SMEM_FIXED)
+    return _ASYM_K if need <= _SMEM_PER_BLOCK else 1
 
 
 def _asym_cover(M: int, k: int, tile: int):
@@ -331,15 +346,27 @@ def _asym_cover(M: int, k: int, tile: int):
     return T, T // 2 + k
 
 
-def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, *,
+def plan_asym_chunks(M: int, sms: int, k: int = _ASYM_K,
+                     tile: int = _ASYM_TILE) -> int:
+    """How many blocks share one group's window of J steps (gridDim.y):
+    the fewest that minimise waves x steps a block, with one block an SM
+    (kernel E's shared memory and registers)."""
+    T, J = _asym_cover(M, k, tile)
+    G = T // k
+    cost = lambda c: -(-G * c // sms) * -(-J // c)      # noqa: E731
+    return min(range(1, J + 1), key=lambda c: (cost(c), c))
+
+
+def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, q: int = 31, *,
                          tile: int = _ASYM_TILE):
-    """Plain PyTorch ``row_stats_asym``: kernel E's covering walked step by
-    step. Group g holds fine tiles alpha = g k + r; step jp pairs them
-    with tile beta = (g k + jp) mod T, and sub-tile r counts the pair iff
-    d = jp - r is in [0, T // 2] (d = T / 2 for even T only when alpha <
-    T / 2): every unordered tile pair once, the diagonal toward its rows
-    only. Each step is one batched one-hot f32 product over the groups;
-    sums in f64, so the counts are exact."""
+    """Plain PyTorch ``row_stats_asym`` over states 1..q (tokens above q
+    match nothing): kernel E's covering walked step by step. Group g holds
+    fine tiles alpha = g k + r; step jp pairs them with tile beta = (g k +
+    jp) mod T, and sub-tile r counts the pair iff d = jp - r is in [0, T //
+    2] (d = T / 2 for even T only when alpha < T / 2): every unordered tile
+    pair once, the diagonal toward its rows only. Each step is one batched
+    one-hot f32 product over the groups; sums in f64, so the counts are
+    exact."""
     M, N = Z.shape
     if M == 0:
         return (torch.zeros(0, dtype=torch.float32, device=Z.device),) * 2
@@ -348,7 +375,7 @@ def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, *,
     G, Mp = T // k, T * tile
     Zp = torch.zeros((Mp, N), dtype=torch.uint8, device=dev)
     Zp[:M] = Z.view(torch.uint8)
-    E = _one_hot(Zp, max(int(Z.max()), 1), torch.float32)
+    E = _one_hot(Zp, q, torch.float32)
     EA = E.view(G, k * tile, -1)
     EB = E.view(T, tile, -1)
     valid = torch.arange(Mp, device=dev) < M
@@ -385,33 +412,33 @@ def row_stats_asym_torch(Z: torch.Tensor, thresh, k: int, *,
 
 
 def row_stats_asym(Z: torch.Tensor, thresh, q: int = 31):
-    """``row_stats`` by kernel E's grouped-row covering: the same (rowsum,
-    below). ``q`` serves the ``row_stats_fn`` contract only: every token
-    1..31 counts (an alignment over states 1..q holds no other). A width
-    with no plan (``plan_asym`` gives 1) takes ``row_stats`` over every
-    state (kernel A on a card, counted there). CPU tensors take
-    ``row_stats_asym_torch``; CUDA tensors launch kernel E (build and
-    launch errors raise)."""
+    """``row_stats(Z, thresh, q)`` by kernel E's grouped-row covering: the
+    same (rowsum, below) over states 1..q (1 <= q <= 31; tokens above q
+    match nothing). A width with no plan (``plan_asym`` gives 1) takes
+    ``row_stats(Z, thresh, q)`` (kernel A on a card, counted there). CPU
+    tensors take ``row_stats_asym_torch``; CUDA tensors launch kernel E
+    (build and launch errors raise)."""
     _check_tokens("row_stats_asym", Z)
+    _check_states("row_stats_asym", q)
     M, N = Z.shape
     k = plan_asym(N)
     if k < 2:
-        return row_stats(Z, thresh, q=31)   # every state, as kernel E
+        return row_stats(Z, thresh, q=q)
     if Z.device.type == "cpu":
-        return row_stats_asym_torch(Z, thresh, k)
+        return row_stats_asym_torch(Z, thresh, k, q)
+    _check_width("row_stats_asym", N)
     rowsum = torch.zeros(M, dtype=torch.int64, device=Z.device)
     below = torch.zeros(M, dtype=torch.int64, device=Z.device)
     if M == 0:
         return rowsum.float(), below.float()
-    words = pack_tokens(Z)
-    T, J = _asym_cover(M, k, _ASYM_TILE)
+    words = pack_tokens(Z, q)
     sms = torch.cuda.get_device_properties(Z.device).multi_processor_count
-    chunks = max(1, min(J, -(-_ASYM_BLOCKS_PER_SM * sms // (T // k))))
     fn = _lib("row_stats_asym", "gdca_row_stats_asym",
               [_P, _I, _I, _I, _F, _I, _I, _P, _P, _P])
     with torch.cuda.device(Z.device):
-        err = fn(words.data_ptr(), M, words.shape[1], N, float(thresh), k,
-                 chunks, rowsum.data_ptr(), below.data_ptr(),
+        err = fn(words.data_ptr(), M, words.shape[1], N, float(thresh), q,
+                 plan_asym_chunks(M, sms, k), rowsum.data_ptr(),
+                 below.data_ptr(),
                  torch.cuda.current_stream(Z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -428,7 +455,7 @@ row_stats_asym.launches = 0
 def one_hot_planes(Z: torch.Tensor, q: int) -> torch.Tensor:
     """E8 [M, K] int8 on Z's device: E8[a, n q + c - 1] = 1 iff Z[a, n] =
     c (c = 1..q, position-major; token 0 gives a zero segment), K = N q
-    zero-padded to a multiple of 64, the depth kernel F walks."""
+    zero-padded to a multiple of 64 (``_E8_DEPTH``)."""
     M, N = Z.shape
     K = N * q
     Kp = max(_E8_DEPTH, -(-K // _E8_DEPTH) * _E8_DEPTH)

@@ -41,6 +41,7 @@ from gaussdca_tpu_torch.ops import di_kernel, distance
 from gaussdca_tpu_torch.parallel.mesh import Mesh, all_gather, psum, \
     replicate
 from gaussdca_tpu_torch.score.apc import correct_apc
+from gaussdca_tpu_torch.score.di import ns_iters
 from gaussdca_tpu_torch.score.frob import frob_rows
 from gaussdca_tpu_torch.solve.cholesky import spd_inverse
 from gaussdca_tpu_torch.solve.distributed import pad_slab, plan_padding, \
@@ -133,9 +134,10 @@ def _di_replicated(mesh: Mesh, mJ: List[torch.Tensor],
     device's copy of mJ."""
     iu, ju = np.triu_indices(N, k=1)
     chunks = np.array_split(np.arange(iu.size), mesh.size)
+    iters = ns_iters(mJ[0].dtype, -(-iu.size // mesh.size))
     di = [di_kernel.di_pairs(mJ[d], Ls[d],
                              torch.as_tensor(iu[c], device=dev),
-                             torch.as_tensor(ju[c], device=dev))
+                             torch.as_tensor(ju[c], device=dev), iters)
           for d, (c, dev) in enumerate(zip(chunks, mesh.flat))]
     di = all_gather(di, mesh.home)
     iu, ju = (torch.as_tensor(x, device=mesh.home) for x in (iu, ju))
@@ -150,13 +152,14 @@ def _di_local(mesh: Mesh, J: List[torch.Tensor], Ls: List[torch.Tensor],
     """DI with mJ kept in site-aligned row slabs: every pair is read from
     the slab of its anchor (``_pair_assignment``)."""
     nloc, assign = _pair_assignment(N, mesh.size)
+    iters = ns_iters(J[0].dtype, -(-(N * (N - 1) // 2) // mesh.size))
     di, oi, oj = [], [], []
     for d, dev in enumerate(mesh.flat):
         a, o, i, j = assign[d]
         if a.size:
             di.append(di_kernel.di_pairs(
                 J[d], Ls[d], torch.as_tensor(a, device=dev),
-                torch.as_tensor(o, device=dev), row0=d * nloc))
+                torch.as_tensor(o, device=dev), iters, row0=d * nloc))
             oi.append(i)
             oj.append(j)
     oi, oj = (torch.as_tensor(np.concatenate(x), device=mesh.home)

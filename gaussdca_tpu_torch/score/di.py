@@ -8,10 +8,13 @@ The contract of ``gaussdca_tpu.score.di.di_score`` (DCAUtils
 
 over all P = N(N-1)/2 pairs, assembled into a symmetric N x N matrix with
 a zero diagonal. One formulation serves every dtype and pair count: the
-fixed-step Newton-Schulz core of ``_di_pairs_bm_minor``
-(``ops.di_kernel.di_pairs``, the Hopper kernel on a CUDA tensor). The JAX
-package's monitored f64 loop, its small-P gemm path and its TPU lane
-layouts (mapped / tiled / gathered) are not part of this port.
+Newton-Schulz core of ``_di_pairs_bm_minor`` (``ops.di_kernel.di_pairs``,
+the Hopper kernel on a CUDA tensor), run for the JAX package's step count
+(``ns_iters``): 40 steps in f64, where JAX runs its monitored loop to
+convergence with a cap of 40; 28 in f32 below 16384 pairs, JAX's
+fixed-step small-batch path; else 14, its batch-minor core. The JAX
+package's TPU lane layouts (mapped / tiled / gathered) are not part of
+this port.
 """
 
 from __future__ import annotations
@@ -21,7 +24,23 @@ import torch
 
 from gaussdca_tpu_torch.ops.di_kernel import BM_NS_ITERS, di_pairs
 
-__all__ = ["BM_NS_ITERS", "site_cholesky", "di_score"]
+__all__ = ["BM_NS_ITERS", "site_cholesky", "di_score", "ns_iters"]
+
+# gaussdca_tpu.score.di: sqrtm_spd's cap (f64), FALLBACK_NS_ITERS (f32
+# below _BM_MIN_PAIRS pairs) and _BM_MIN_PAIRS
+F64_NS_ITERS = 40
+SMALL_NS_ITERS = 28
+BM_MIN_PAIRS = 16384
+
+
+def ns_iters(dtype: torch.dtype, npairs: int) -> int:
+    """Newton-Schulz steps for a batch of ``npairs`` pairs in ``dtype``,
+    the JAX package's rule: 40 in f64, 28 in f32 below 16384 pairs, else
+    14. A mesh judges by its pairs a shard, ceil(P / shards), as JAX's
+    sharded DI does, so every shard runs the same count."""
+    if dtype == torch.float64:
+        return F64_NS_ITERS
+    return SMALL_NS_ITERS if npairs < BM_MIN_PAIRS else BM_NS_ITERS
 
 
 def site_cholesky(C: torch.Tensor, q: int) -> torch.Tensor:
@@ -41,7 +60,7 @@ def di_score(mJ: torch.Tensor, C: torch.Tensor, q: int) -> torch.Tensor:
     iu_np, ju_np = np.triu_indices(N, k=1)
     iu = torch.as_tensor(iu_np, device=mJ.device)
     ju = torch.as_tensor(ju_np, device=mJ.device)
-    di = di_pairs(mJ, Lsite, iu, ju, BM_NS_ITERS)
+    di = di_pairs(mJ, Lsite, iu, ju, ns_iters(mJ.dtype, iu.numel()))
     S = torch.zeros((N, N), dtype=mJ.dtype, device=mJ.device)
     S[iu, ju] = di
     S[ju, iu] = di

@@ -99,7 +99,7 @@ def test_row_stats_asym_plain_matches_pallas_interpret(q, tile, k, M):
             k=k, interpret=True)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        # the wrapper (its own plan: 64-row tiles) gives the same
+        # the wrapper (its own plan: 128-row tiles, k = 2) gives the same
         for g, w in zip(tdist.row_stats_asym(torch.as_tensor(Z), t), want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -126,18 +126,23 @@ def test_row_stats_asym_covering_is_exact(M, k, tile):
 
 
 def test_plan_asym():
-    """k >= 2 at the main width (N = 384), k = 1 (no plan: kernel A) at
-    N = 1000, and every plan fits the shared-memory budget."""
-    assert tdist.plan_asym(384) == 3
-    assert tdist.plan_asym(53) == 4
+    """k = 2 (two resident 128-row tiles, one consumer warpgroup each) at
+    the main width (N = 384) and up to N = 512, k = 1 (no plan: kernel A)
+    above it; a plan holds exactly when the resident words (row stride 4
+    mod 32 words) and the ring of B stages fit a block's shared memory."""
+    assert tdist.plan_asym(384) == 2
+    assert tdist.plan_asym(53) == 2
+    assert tdist.plan_asym(512) == 2
+    assert tdist.plan_asym(513) == 1
     assert tdist.plan_asym(1000) == 1
-    for N in (1, 53, 200, 384, 400, 512, 700, 1000, 4000):
+    for N in (1, 53, 200, 384, 400, 512, 513, 640, 700, 1000, 4000):
         k = tdist.plan_asym(N)
         W = tdist.pack_tokens(torch.zeros((1, N), dtype=torch.uint8)).shape[1]
-        if k >= 2:
-            assert (k + 1) * 64 * (W + 1) * 4 <= tdist._ASYM_SMEM_BUDGET
-        if k < 4:
-            assert (k + 2) * 64 * (W + 1) * 4 > tdist._ASYM_SMEM_BUDGET
+        S = tdist._asym_stride(W)
+        assert S % 32 == 4 and W <= S < W + 32
+        need = (2 * 128 * S * 4 + tdist._ASYM_STAGES * tdist._ASYM_STAGE_BYTES
+                + tdist._ASYM_SMEM_FIXED)
+        assert k in (1, 2) and (k == 2) == (need <= tdist._SMEM_PER_BLOCK)
 
 
 def test_row_stats_asym_without_a_plan_takes_row_stats(monkeypatch):
