@@ -60,10 +60,30 @@ prints no result line):
    ``match_counts`` (D)), in f32 and f64: W, Meff and theta equal to
    kernel A's.
 
-The launch counters are zeroed right before each path of phases 4-7 and
+8. the batch front end, ``python -m gaussdca_tpu_torch`` run in this
+   process as ``cli.main([...])`` with stderr captured: gzipped FASTA
+   files of the two real-size families, the auto-theta frob cell of
+   ``bench.py`` (M=100,000, N=200) and an ingest-only 100,000x400 file;
+   native and NumPy parse times (the same tokens); kernel A at
+   M=100,000 against its plain version (and the weights from each); then
+   the paths ``cli`` (a frob batch of the small golden and the two frob
+   families with ``--merge-output``, and the DI family, with
+   ``--cache-dir``: each output against ``gdca_from_msa`` of the same
+   parsed MSA within rel 1e-6, the small one against its golden file),
+   ``cli cached`` (the same batches again: every record cached, the
+   outputs byte-identical, no kernel launched), ``cli no-prefetch`` (the
+   batches parsed in turn: byte-identical outputs), ``cli mesh`` (``--mesh
+   1,1``, within 1e-5 of ``cli``), ``cli top_k`` (``--top-k 100``, the
+   head of the ranking) and ``cli profile`` (``--profile-dir``: the trace
+   names kernel A); then family mode, two processes of the port's
+   ``podspawn`` on cuda:0 with ``--distributed --merge-output``, whose
+   part files hold the merged file's lines.
+
+The launch counters are zeroed right before each path of phases 4-8 and
 read after it; each path fails if a kernel of it never ran (A and B in 4,
-C and B in 5, A in 6, and E, C, F and D in the four paths of 7, where
-kernel A must not run). The line before the last is the kernel summary
+C and B in 5, A in 6, E, C, F and D in the four paths of 7, where
+kernel A must not run, and A, B, C as named in 8); family mode sums the
+two processes' counts. The line before the last is the kernel summary
 JSON; the last line is ``{"ok": true, "device": {...}}``. No CUDA
 device: exit 1, no result.
 """
@@ -227,8 +247,9 @@ def phase_kernels(dev):
     from gaussdca_tpu_torch.io import fasta
     from gaussdca_tpu_torch.ops import di_kernel, distance
     from gaussdca_tpu_torch.parallel.sharded import _pair_assignment
-    from gaussdca_tpu_torch.score.di import site_cholesky
+    from gaussdca_tpu_torch.score.di import ns_iters, site_cholesky
     from gaussdca_tpu_torch.stats import reweight
+    from gaussdca_tpu_torch.utils.flops import di_pair_flops
 
     # --- kernel A: exact equality; kernel C on row blocks of the same Z;
     # tokens 1..31, so that tokens above q occur at q = 9 and 21
@@ -462,13 +483,11 @@ def phase_kernels(dev):
     ms_b = cuda_ms(lambda: di_kernel.di_pairs(mJ, Ls, iu, ju), reps=5)
     plain_b = cuda_ms(lambda: di_kernel.di_pairs_torch(mJ, Ls, iu, ju),
                       reps=3)
-    # per pair: 42 s x s products (rho, G, 14 trimmed Newton-Schulz
-    # steps) and the elimination, in f32 off the tensor cores; reads each
-    # pair's J block and two factors, writes one value
-    iters = di_kernel.BM_NS_ITERS
-    products = 3 + 1 + 3 * (iters - 2) + 2
+    # per pair: the s x s products and the elimination at the pipeline's
+    # step count (utils/flops.py, the CLI's count), in f32 off the tensor
+    # cores; reads each pair's J block and two factors, writes one value
     bound_b = bound(P * (3 * s * s + 5) * 4,
-                    P * (products * 2 * s ** 3 + 2 * s ** 3 / 3),
+                    P * di_pair_flops(s, ns_iters(torch.float32, P)),
                     F32_FLOPS_S)
     # the same values laid out column-major, as cuSOLVER writes the
     # inverse: the wrapper then copies mJ before its launch
@@ -931,6 +950,344 @@ def phase_top_k(golden32):
         raise AssertionError("top_k is not the head of the full ranking")
 
 
+# the CLI batch files (phase 8): name -> (M, N, seed); frob and DI are the
+# real-size families of phase 4 (same seeds), deep is the auto-theta frob
+# cell of bench.py (M = 100,000, N = 200, q = 21), ingest a file that is
+# only parsed
+BATCH = {"frob32768x384": (32768, 384, 32768 + 384),
+         "deep100000x200": (100000, 200, 100000 + 200),
+         "di1024x1000": (1024, 1000, 1024 + 1000),
+         "ingest100000x400": (100000, 400, 100000 + 400)}
+FROB_BATCH = ("small", "frob32768x384", "deep100000x200")
+DI_ARGS = ["--score", "DI", "--pseudocount", "0.2", "--theta", "0.2"]
+# states 1..20 are the amino acids in alphabetical order, 21 the gap
+ALPHABET = b"ACDEFGHIKLMNPQRSTVWY-"
+
+
+def write_fasta_gz(path: str, tokens: np.ndarray) -> None:
+    """A gzipped FASTA file of the token matrix, one line a sequence."""
+    import gzip
+
+    lut = np.frombuffer(b"?" + ALPHABET, dtype=np.uint8)
+    rows = lut[tokens]
+    with gzip.open(path, "wb", compresslevel=6) as fh:
+        fh.write(b"".join(b">s%d\n%s\n" % (i, rows[i].tobytes())
+                          for i in range(rows.shape[0])))
+
+
+def phase_batch_files(tmp: str) -> dict:
+    """The batch's gzipped FASTA files; returns name -> path."""
+    files = {"small": os.path.join(GOLDEN_DIR, "small.fasta.gz")}
+    for name, (M, N, seed) in BATCH.items():
+        files[name] = os.path.join(tmp, name + ".fasta.gz")
+        write_fasta_gz(files[name], family_tokens(M, N, 21, seed=seed))
+    for name, path in files.items():
+        log(f"[batch] {name}: {os.path.getsize(path) / 1e6:.2f} MB "
+            f"({os.path.relpath(path, REPO) if name == 'small' else path})")
+    return files
+
+
+def phase_ingest(files: dict) -> dict:
+    """Native and NumPy parse times of the two largest files (median of
+    three), their results equal; returns the times for the summary."""
+    from gaussdca_tpu_torch.io import fasta, native
+
+    if native.available():
+        from gaussdca_tpu_torch.ops import _build
+
+        lib = _build.build_host("fasta_native", native.BUILD_VARIANTS)
+        ldd = subprocess.run(["ldd", lib], capture_output=True, text=True)
+        linked = ("libdeflate and zlib" if "libdeflate" in ldd.stdout
+                  else "zlib only")
+        log(f"[ingest] native parser {os.path.relpath(lib, REPO)}: {linked}")
+    else:
+        log(f"[ingest] native parser did not build:\n{native.build_error()}")
+    log("[ingest] read_fasta_alignment(use_native=None) takes the "
+        f"{'native' if native.available() else 'numpy'} parser")
+    out = {}
+    for name in ("ingest100000x400", "frob32768x384"):
+        parsed, times = {}, {}
+        for parser in ("native", "numpy")[0 if native.available() else 1:]:
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                parsed[parser] = fasta.read_fasta_alignment(
+                    files[name], 0.9, use_native=parser == "native")
+                runs.append(time.perf_counter() - t0)
+            times[parser] = statistics.median(runs)
+            msa = parsed[parser]
+            log(f"[ingest] {name} {parser}: {times[parser]:.3f} s (runs "
+                f"{', '.join(f'{t:.3f}' for t in runs)}), M={msa.M} N={msa.N}"
+                f" q={msa.q}, parser {msa.parser}")
+        want = BATCH[name]
+        for msa in parsed.values():
+            if msa.tokens.shape != want[:2] or not np.array_equal(
+                    msa.tokens, family_tokens(*want[:2], 21, seed=want[2])):
+                raise AssertionError(f"{name}: parsed tokens differ from the "
+                                     "tokens written")
+        if len(parsed) == 2 and parsed["native"].headers != \
+                parsed["numpy"].headers:
+            raise AssertionError(f"{name}: the parsers' headers differ")
+        out[name] = times
+    return out
+
+
+def phase_deep_rows(dev, files: dict) -> None:
+    """Kernel A at M = 100,000 (M^2 > 2^31) against its plain version on
+    the deep family's rows, and the weights from each equal."""
+    import torch
+    from gaussdca_tpu_torch.io import fasta
+    from gaussdca_tpu_torch.ops import distance
+    from gaussdca_tpu_torch.stats import reweight
+
+    msa = fasta.read_fasta_alignment(files["deep100000x200"], 0.9)
+    Z = torch.as_tensor(msa.tokens, device=dev)
+    M, N = Z.shape
+    th = float(reweight.auto_theta_closed_form(Z, 21))
+    thresh = float(np.float32(np.floor(th * N)))
+    got = distance.row_stats(Z, thresh, 21)
+    want = distance.row_stats_torch(Z, thresh, 21)
+    torch.cuda.synchronize()
+    _equal_stats(got, want, f"row_stats vs plain at M={M} N={N}")
+    W, Meff, _ = reweight.compute_weights_streaming(Z, "auto", 21,
+                                                    dtype=torch.float32)
+    Wp, Meffp, _ = reweight.compute_weights_streaming(
+        Z, "auto", 21, dtype=torch.float32,
+        row_stats_fn=lambda *_: want)
+    if not torch.equal(W, Wp):
+        raise AssertionError(f"W at M={M} differs from the plain version's")
+    log(f"[deep] row_stats == plain at M={M} N={N} q=21 thresh={thresh} "
+        f"(theta {th:.4f}; rowsum up to {int(got[0].max())}), W == the "
+        f"plain version's W, Meff {float(Meff):.3f}")
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv)`` in this process with stderr captured; logs and
+    returns its JSON records, raises on a non-zero exit."""
+    import contextlib
+    import io
+    from gaussdca_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        rc = cli.main([str(a) for a in argv])
+    recs = []
+    for line in buf.getvalue().splitlines():
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+            log(f"[cli] {line}")
+    if rc != 0:
+        raise AssertionError(f"cli.main exited {rc}:\n"
+                             f"{buf.getvalue()[-3000:]}")
+    return recs
+
+
+def read_rank_text(path: str) -> dict:
+    with open(path) as fh:
+        return {(int(i), int(j)): float(x)
+                for i, j, x in (line.split() for line in fh)}
+
+
+def cli_batches(files: dict, out: str, extra=(), cache=None) -> dict:
+    """The frob batch (merged) and the DI batch through ``cli.main`` into
+    ``out``; returns the records of both."""
+    c = ["--cache-dir", cache] if cache else []
+    t0 = time.perf_counter()
+    frob = run_cli([*(files[n] for n in FROB_BATCH), "-o", out,
+                    "--merge-output", os.path.join(out, "merged.txt"),
+                    *c, *extra])
+    t1 = time.perf_counter()
+    di = run_cli([files["di1024x1000"], "-o", out, *DI_ARGS, *c, *extra])
+    t2 = time.perf_counter()
+    log(f"[cli] batch walls (host clock around cli.main): frob "
+        f"{t1 - t0:.3f} s, DI {t2 - t1:.3f} s")
+    return {"frob": frob, "di": di}
+
+
+def check_cli_outputs(files: dict, out: str) -> None:
+    """Each family's output against ``api.gdca_from_msa`` of the same
+    parsed MSA and config in this process (same pair set, every value
+    within rel 1e-6), the small family also against its golden file in
+    the f32 envelope, the merged file against the per-family files."""
+    import torch
+    from gaussdca_tpu_torch import api
+    from gaussdca_tpu_torch.core.config import GDCAConfig
+    from gaussdca_tpu_torch.io import fasta
+    from gaussdca_tpu_torch.score.rank import format_rank
+
+    runs = [(n, {}) for n in FROB_BATCH] + [
+        ("di1024x1000", dict(score="DI", pseudocount=0.2, theta=0.2))]
+    for name, kw in runs:
+        msa = fasta.read_fasta_alignment(files[name], 0.9)
+        r = api.gdca_from_msa(msa, GDCAConfig(device="cuda",
+                                              dtype=torch.float32, **kw))
+        path = os.path.join(out, name + ".rank.txt")
+        with open(path) as fh:
+            text = fh.read()
+        got = read_rank_text(path)
+        want = {(i, j): x for i, j, x in r.ranking}
+        if set(got) != set(want):
+            raise AssertionError(f"cli {name}: pair set differs from "
+                                 "gdca_from_msa's")
+        rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-300)
+                  for k in want)
+        same = text == format_rank(r.ranking)
+        log(f"[cli check] {name}: {len(got)} pairs, max rel diff to "
+            f"gdca_from_msa {rel:.2e} (limit 1e-6), text "
+            f"{'byte-identical' if same else 'differs'}")
+        if not rel <= 1e-6:
+            raise AssertionError(f"cli {name} disagrees with gdca_from_msa")
+    gold = _load_golden(os.path.join(GOLDEN_DIR, "small.FNRout.txt"))
+    got = read_rank_text(os.path.join(out, "small.rank.txt"))
+    err = max(abs(got[k] - gold[k]) for k in gold) \
+        if set(got) == set(gold) else float("inf")
+    log(f"[cli check] small vs small.FNRout.txt: max abs err {err:.3e} "
+        "(limit 5e-4)")
+    if not err <= 5e-4:
+        raise AssertionError("cli small output fails the f32 golden gate")
+    want = []
+    for name in FROB_BATCH:
+        with open(os.path.join(out, name + ".rank.txt")) as fh:
+            want += [f"{name} {line}" for line in fh]
+    with open(os.path.join(out, "merged.txt")) as fh:
+        if fh.readlines() != want:
+            raise AssertionError("the merged file is not the per-family "
+                                 "files with their stems")
+
+
+def same_outputs(a: str, b: str, names) -> None:
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{name}: {b} differs from {a}")
+
+
+def check_cached(recs: dict, out: str, ref: str) -> None:
+    flat = recs["frob"][:-1] + recs["di"][:-1]
+    if len(flat) != 4 or not all(r.get("cached") is True for r in flat):
+        raise AssertionError("the rerun was not served from the cache")
+    same_outputs(ref, out, [n + ".rank.txt" for n in FROB_BATCH]
+                 + ["di1024x1000.rank.txt", "merged.txt"])
+    log("[cli cached] every family cached: true, outputs byte-identical")
+
+
+def check_mesh(out: str, ref: str) -> None:
+    for name in FROB_BATCH:
+        got = read_rank_text(os.path.join(out, name + ".rank.txt"))
+        want = read_rank_text(os.path.join(ref, name + ".rank.txt"))
+        diff = max(abs(got[k] - want[k]) for k in want) \
+            if set(got) == set(want) else float("inf")
+        log(f"[cli mesh] {name} --mesh 1,1 vs one device: max abs diff "
+            f"{diff:.3e} (limit 1e-5)")
+        if not diff <= 1e-5:
+            raise AssertionError(f"cli mesh {name} disagrees")
+
+
+def check_top_k(out: str, ref: str) -> None:
+    with open(os.path.join(ref, "frob32768x384.rank.txt")) as fh:
+        full = [(int(i), int(j), float(x))
+                for i, j, x in (line.split() for line in fh)]
+    with open(os.path.join(out, "frob32768x384.rank.txt")) as fh:
+        head = [(int(i), int(j), float(x))
+                for i, j, x in (line.split() for line in fh)]
+    ref_score = {(i, j): x for i, j, x in full}
+    cut = full[99][2]
+    sure = {p[:2] for p in full[:100] if p[2] != cut}
+    pairs = {p[:2] for p in head}
+    diff = max(abs(x - ref_score[(i, j)]) / abs(ref_score[(i, j)])
+               for i, j, x in head)
+    log(f"[cli top_k] frob32768x384 --top-k 100: {len(head)} pairs, "
+        f"{len(pairs & sure)} of the {len(sure)} above the 100th score, max "
+        f"rel diff to the full ranking {diff:.2e} (limit 1e-6)")
+    if len(head) != 100 or not sure <= pairs or diff > 1e-6 or min(
+            x for _, _, x in head) < cut:
+        raise AssertionError("cli --top-k is not the head of the ranking")
+
+
+def check_profile(prof: str) -> None:
+    with open(os.path.join(prof, "trace.json")) as fh:
+        trace = json.load(fh)
+    by_name, span = {}, [float("inf"), 0.0]
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") == "X":
+            span = [min(span[0], ev["ts"]), max(span[1], ev["ts"] + ev["dur"])]
+        if ev.get("cat") == "kernel":
+            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    top = sorted(by_name.items(), key=lambda t: -t[1])[:8]
+    busy = sum(by_name.values())
+    log(f"[cli profile] {len(by_name)} kernels in the trace, {busy:.1f} us "
+        f"of device time in a {span[1] - span[0]:.1f} us trace (busy "
+        f"{busy / max(span[1] - span[0], 1e-9):.1%}); by kernel (us): "
+        + "; ".join(f"{n[:70]} {d:.1f}" for n, d in top))
+    mine = [(n, d) for n, d in by_name.items() if "row_stats_kernel" in n]
+    if not mine:
+        raise AssertionError("the profiler trace does not name kernel A's "
+                             "row_stats_kernel")
+    log(f"[cli profile] kernel A in the trace: {mine[0][0]} {mine[0][1]:.1f} "
+        "us")
+
+
+_FAMILY_CHILD = r"""
+import json
+out_dir, merge, *inputs = argv
+from gaussdca_tpu_torch.cli import main
+from gaussdca_tpu_torch.ops import di_kernel, distance
+
+rc = main(inputs + ["-o", out_dir, "--distributed", "--merge-output", merge])
+print(json.dumps({"rc": rc, "launches": {
+    k: getattr(m, f).launches for k, m, f in (
+        ("row_stats", distance, "row_stats"),
+        ("row_stats_rect", distance, "row_stats_rect"),
+        ("di_pairs", di_kernel, "di_pairs"),
+        ("match_counts", distance, "match_counts"),
+        ("row_stats_asym", distance, "row_stats_asym"),
+        ("row_stats_sym_e8", distance, "row_stats_sym_e8"))}}))
+"""
+
+
+def phase_family_mode(files: dict, out: str, ref: str) -> dict:
+    """Two processes of one job on cuda:0 (the port's podspawn) split the
+    frob batch with --distributed --merge-output; their part files hold
+    the lines of the one-process merged file. Returns the children's
+    launch counts, summed."""
+    from gaussdca_tpu_torch.parallel.podspawn import spawn_pod
+
+    merge = os.path.join(out, "merged.txt")
+    t0 = time.perf_counter()
+    outs = spawn_pod(_FAMILY_CHILD, timeout=600,
+                     args_per_proc=lambda i: [out, merge, *(
+                         files[n] for n in FROB_BATCH)])
+    wall = time.perf_counter() - t0
+    total = {}
+    for i, (rc, sout, serr) in enumerate(outs):
+        for line in serr.splitlines():
+            if line.startswith("{"):
+                log(f"[cli family p{i}] {line}")
+        if rc != 0:
+            raise AssertionError(f"family-mode process {i} exited {rc}:\n"
+                                 f"{sout[-2000:]}\n{serr[-3000:]}")
+        res = json.loads(sout.strip().splitlines()[-1])
+        if res["rc"] != 0 or res["launches"]["row_stats"] <= 0:
+            raise AssertionError(f"family-mode process {i}: {res}")
+        log(f"[cli family p{i}] kernel launches: {res['launches']}")
+        for k, n in res["launches"].items():
+            total[k] = total.get(k, 0) + n
+    parts = []
+    for i in range(2):
+        with open(f"{merge}.part{i}of2") as fh:
+            parts += fh.readlines()
+    with open(os.path.join(ref, "merged.txt")) as fh:
+        want = fh.readlines()
+    log(f"[cli family] 2 processes on cuda:0: {wall:.1f} s wall (process "
+        f"start included); part files {len(parts)} lines, merged "
+        f"{len(want)}")
+    if sorted(parts) != sorted(want):
+        raise AssertionError("the family-mode part files do not hold the "
+                             "merged file's lines")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "gaussdca_tpu_torch")):
         log("chip_smoke: gaussdca_tpu_torch/ is not beside this script")
@@ -1008,6 +1365,48 @@ def main() -> int:
                 Z, "auto", q=21, dtype=dt))):
         drive(path, (kernel,), lambda: phase_weights(path, weights, ref),
               absent=("row_stats",))
+    # the batch front end after every kernel is built and warm
+    import tempfile
+
+    del Z, ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = phase_batch_files(tmp)
+        phase_ingest(files)
+        phase_deep_rows(dev, files)
+        torch.cuda.empty_cache()
+        out, cache = os.path.join(tmp, "out"), os.path.join(tmp, "cache")
+        drive("cli", ("row_stats", "di_pairs"),
+              lambda: cli_batches(files, out, cache=cache))
+        check_cli_outputs(files, out)
+        again = os.path.join(tmp, "out_cached")
+        check_cached(drive("cli cached", (), lambda: cli_batches(
+            files, again, cache=cache), absent=tuple(counters)), again, out)
+        serial = os.path.join(tmp, "out_serial")
+        drive("cli no-prefetch", ("row_stats", "di_pairs"),
+              lambda: cli_batches(files, serial, extra=["--no-prefetch"]))
+        same_outputs(out, serial, [n + ".rank.txt" for n in FROB_BATCH]
+                     + ["di1024x1000.rank.txt", "merged.txt"])
+        log("[cli no-prefetch] outputs byte-identical to the prefetched run")
+        mesh_out = os.path.join(tmp, "out_mesh")
+        drive("cli mesh", ("row_stats_rect",), lambda: run_cli([
+            *(files[n] for n in FROB_BATCH), "-o", mesh_out, "--mesh",
+            "1,1"]))
+        check_mesh(mesh_out, out)
+        top_out = os.path.join(tmp, "out_top")
+        drive("cli top_k", ("row_stats",), lambda: run_cli([
+            files["frob32768x384"], "-o", top_out, "--top-k", 100]))
+        check_top_k(top_out, out)
+        prof = os.path.join(tmp, "prof")
+        drive("cli profile", ("row_stats",), lambda: run_cli([
+            files["small"], "-o", os.path.join(tmp, "out_prof"),
+            "--profile-dir", prof]))
+        check_profile(prof)
+        torch.cuda.empty_cache()
+        by_path["cli family"] = phase_family_mode(
+            files, os.path.join(tmp, "out_family"), out)
+        log(f"[main path: cli family] kernel launches (both processes): "
+            f"{by_path['cli family']}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -1,0 +1,479 @@
+"""Batch command line: the pipeline over one or many MSA files.
+
+    python -m gaussdca_tpu_torch family1.fasta.gz family2.fasta ... -o out/
+
+The front end of ``gaussdca_tpu.cli`` for the port. Per family it writes
+``<stem>.rank.txt`` in the reference's "%i %i %e" emission format and logs
+one JSON record to stderr: M, N, q, drop counts, resolved theta, Meff, the
+device and the parser that ran, and the wall time of each stage (ingest,
+pipeline, emit).
+
+- Artifacts are content-addressed in ``--cache-dir`` (sha256 of the file
+  bytes, every result-bearing setting, the device type and mesh, the
+  package version, the CUDA sources and the DI step constants): a rerun
+  skips families whose inputs and settings are unchanged.
+- Ingest prefetch: family i + 1 parses on a host thread while family i
+  computes. The native parser leaves the interpreter lock during its
+  ctypes call, so the parse overlaps the device work.
+- ``--profile-dir`` wraps the batch in ``torch.profiler`` (CPU and CUDA
+  activity) and writes a Chrome trace there.
+- ``--distributed`` deals the families round-robin to the processes of a
+  ``torch.distributed`` job (torchrun's ``env://`` rendezvous), each
+  scoring its own families on its own device; with ``--merge-output``
+  each process writes ``<path>.part<i>of<n>``.
+
+Nothing runs on the CPU unless ``--device cpu`` says so: ``--device cuda``
+(the default) without a card exits 2 before the batch. The JAX CLI's
+``--m-bucket``, ``--n-bucket``, ``--compile-cache`` and ``--warm-compile``
+are accepted and have no effect (they choose how XLA compiles, and leave
+results as they are; eager PyTorch compiles nothing per shape);
+``--fallback`` exits 2, since a plain path on the card is a hidden
+fallback. The kernels build on first use, inside the first family's
+pipeline stage.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import dataclasses
+import hashlib
+import json
+import os
+import sys
+import time
+from typing import List, Optional
+
+import torch
+
+from gaussdca_tpu_torch import __version__, api
+from gaussdca_tpu_torch.core.config import GDCAConfig
+from gaussdca_tpu_torch.io import fasta
+from gaussdca_tpu_torch.ops import _build
+from gaussdca_tpu_torch.parallel import mesh as meshlib
+from gaussdca_tpu_torch.parallel.mesh import Mesh
+from gaussdca_tpu_torch.score import di
+from gaussdca_tpu_torch.score.rank import format_rank
+from gaussdca_tpu_torch.utils.flops import pipeline_flops
+from gaussdca_tpu_torch.utils.log import RunLog
+
+_NO_EFFECT = ("accepted for the JAX CLI's command lines; no effect: eager "
+              "PyTorch compiles nothing per shape, and results are the "
+              "same either way")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gaussdca_tpu_torch",
+        description="Gaussian Direct Coupling Analysis on an NVIDIA GPU: "
+                    "contact-prediction rankings from MSA files.")
+    p.add_argument("inputs", nargs="+", help="FASTA alignment file(s), "
+                   "optionally gzipped")
+    p.add_argument("-o", "--output-dir", default=".",
+                   help="directory for <stem>.rank.txt outputs")
+    p.add_argument("--pseudocount", type=float, default=0.8)
+    p.add_argument("--theta", default="auto",
+                   help='"auto" or a number in [0, 1]')
+    p.add_argument("--max-gap-fraction", type=float, default=0.9)
+    p.add_argument("--score", choices=["frob", "DI"], default="frob")
+    p.add_argument("--min-separation", type=int, default=5)
+    p.add_argument("--remove-dups", action="store_true")
+    p.add_argument("--dtype", choices=["float32", "float64"],
+                   default="float32", help="compute dtype (float32)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu); "
+                        "nothing runs on the CPU unless asked")
+    p.add_argument("--fallback", action="store_true",
+                   help="refused (exit 2): the port has no plain path on "
+                        "the card; --device cpu runs the plain versions")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="emit only the top K pairs (selected on the "
+                        "device)")
+    p.add_argument("--cache-dir", default=None,
+                   help="content-addressed artifact cache; unchanged "
+                        "(file, settings) pairs are skipped")
+    p.add_argument("--m-bucket", type=int, default=256, help=_NO_EFFECT)
+    p.add_argument("--n-bucket", type=int, default=32, help=_NO_EFFECT)
+    p.add_argument("--compile-cache", default="auto", help=_NO_EFFECT)
+    p.add_argument("--warm-compile", action="store_true", help=_NO_EFFECT)
+    p.add_argument("--no-prefetch", action="store_true",
+                   help="disable threaded ingest prefetch")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the batch "
+                        "here")
+    p.add_argument("--mesh", default=None, metavar="DPxTP|auto",
+                   help="run the sharded pipeline on a (data, model) mesh: "
+                        "'auto' lays one over every visible card, or give "
+                        "a shape like '4,2' / '4x2' (with --device cpu, a "
+                        "shape of CPU shards)")
+    p.add_argument("--distributed", action="store_true",
+                   help="family mode: join the torch.distributed job "
+                        "(env:// rendezvous, as torchrun sets it) and deal "
+                        "the families round-robin to its processes; "
+                        "refused with --mesh (the pod mesh is not ported)")
+    p.add_argument("--merge-output", default=None,
+                   help="additionally write one merged ranking file: "
+                        "'<family> <i> <j> <score>' lines, all families "
+                        "concatenated in batch order (with --distributed "
+                        "and >1 process, each process writes its own "
+                        "<path>.part<i>of<n> shard: concatenate them)")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-family JSON logs")
+    return p
+
+
+def _parse_theta(s):
+    if s == "auto":
+        return "auto"
+    try:
+        return float(s)
+    except ValueError:
+        raise SystemExit(f"invalid --theta value: {s}")
+
+
+def _parse_mesh(s: Optional[str]):
+    """'auto' | '4,2' | '4x2' -> the api.resolve_mesh argument (or None)."""
+    if s is None:
+        return None
+    if s == "auto":
+        return "auto"
+    for sep in (",", "x", "X"):
+        if sep in s:
+            parts = s.split(sep)
+            if len(parts) == 2:
+                try:
+                    return (int(parts[0]), int(parts[1]))
+                except ValueError:
+                    break
+    raise SystemExit(f"invalid --mesh value: {s} (expected 'auto' or "
+                     "'DP,TP' like '4,2')")
+
+
+def _kernel_sources_digest() -> str:
+    """sha256 of the CUDA sources (``csrc/*.cu`` and ``*.cuh``): a kernel
+    change can move f32 scores."""
+    h = hashlib.sha256()
+    for f in sorted(os.listdir(_build.CSRC_DIR)):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC_DIR, f), "rb") as fh:
+                h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    return h.hexdigest()
+
+
+def _cache_key(path: str, cfg: GDCAConfig, top_k: Optional[int],
+               mesh_desc: str = "") -> str:
+    """The artifact's name: the file bytes and everything that can move
+    the emitted text."""
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        h.update(fh.read())
+    key = (cfg.pseudocount, cfg.theta, cfg.max_gap_fraction, cfg.score,
+           cfg.min_separation, cfg.remove_dups, cfg.solve_min_dim,
+           cfg.solve_block, cfg.resolve_dtype(), top_k,
+           cfg.resolve_device().type, mesh_desc, __version__,
+           _kernel_sources_digest(),
+           (di.F64_NS_ITERS, di.SMALL_NS_ITERS, di.BM_MIN_PAIRS,
+            di.BM_NS_ITERS))
+    h.update(repr(key).encode())
+    return h.hexdigest()
+
+
+def _mesh_desc(mesh: Optional[Mesh]) -> str:
+    """Cache-key descriptor of a mesh ('' = one device): mesh runs sum in
+    a different order, so artifacts must not be shared."""
+    if mesh is None:
+        return ""
+    return "mesh:" + "x".join(
+        f"{a}{mesh.shape[a]}" for a in mesh.axis_names)
+
+
+def _stem(path: str) -> str:
+    stem = os.path.basename(path)
+    for suf in (".gz", ".fasta", ".fa", ".afa", ".fna"):
+        if stem.endswith(suf):
+            stem = stem[: -len(suf)]
+    return stem
+
+
+def _output_stems(paths: List[str]) -> List[str]:
+    """Per-input output stems, disambiguating basename collisions so
+    famA/align.fasta and famB/align.fasta don't overwrite each other."""
+    seen: dict = {}
+    out = []
+    for p in paths:
+        s = _stem(p)
+        n = seen.get(s, 0)
+        seen[s] = n + 1
+        out.append(s if n == 0 else f"{s}.{n + 1}")
+    return out
+
+
+def run_family(path: str, cfg: GDCAConfig, out_dir: str,
+               top_k: Optional[int], cache_dir: Optional[str],
+               quiet: bool, msa_future=None, stem: Optional[str] = None,
+               cache_key: Optional[str] = None,
+               mesh: Optional[Mesh] = None) -> str:
+    """Process one family; returns the output path.
+
+    ``msa_future``: optional concurrent.futures.Future holding the
+    prefetched ingest result (or raising its parse error).
+    ``cache_key``: precomputed ``_cache_key`` (the batch loop computes it
+    for prefetch decisions; avoids hashing the file twice).
+    """
+    if stem is None:
+        stem = _stem(path)
+    out_path = os.path.join(out_dir, stem + ".rank.txt")
+    os.makedirs(out_dir, exist_ok=True)
+    device = str(mesh.home if mesh is not None else cfg.resolve_device())
+    log = RunLog(stem, enabled=not quiet)
+
+    cached = None
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        if cache_key is None:
+            cache_key = _cache_key(path, cfg, top_k, _mesh_desc(mesh))
+        cached = os.path.join(cache_dir, cache_key)
+        if os.path.exists(cached):
+            with open(cached) as fh, open(out_path, "w") as out:
+                out.write(fh.read())
+            log.set(cached=True, output=out_path, device=device)
+            log.emit()
+            return out_path
+
+    with log.stage("ingest"):
+        if msa_future is not None:
+            msa = msa_future.result()
+        else:
+            msa = fasta.read_fasta_alignment(path, cfg.max_gap_fraction)
+    with log.stage("pipeline"):
+        result = api.gdca_from_msa(msa, cfg, top_k=top_k, mesh=mesh)
+    with log.stage("emit"):
+        R = result.ranking
+        text = format_rank(R)
+        with open(out_path, "w") as fh:
+            fh.write(text)
+        if cached:
+            # write, then rename: an interrupted run never leaves a
+            # truncated artifact for the next run to serve
+            with open(cached + ".part", "w") as fh:
+                fh.write(text)
+            os.replace(cached + ".part", cached)
+
+    fl = pipeline_flops(result.M, result.N, result.q, score=cfg.score,
+                        auto_theta=cfg.auto_theta, dtype=cfg.resolve_dtype(),
+                        shards=mesh.size if mesh is not None else None,
+                        solve_min_dim=cfg.solve_min_dim)
+    pipe_s = log.timings["pipeline"]
+    log.set(M=result.M, N=result.N, q=result.q,
+            dropped_gaps=result.n_dropped_gaps,
+            dropped_dups=result.n_dropped_dups,
+            theta=round(result.theta, 6), meff=round(result.meff, 4),
+            pairs=len(R), score=cfg.score, output=out_path, cached=False,
+            tflop=round(fl["total"] / 1e12, 4),
+            tflop_per_s=round(fl["total"] / 1e12 / pipe_s, 2)
+            if pipe_s > 0 else None,
+            device=device, parser=msa.parser)
+    log.emit()
+    return out_path
+
+
+_TRANSIENT_MARKERS = ("RESOURCE_EXHAUSTED", "INTERNAL", "UNAVAILABLE",
+                      "DEADLINE_EXCEEDED", "ABORTED")
+
+
+def _retryable(e: BaseException) -> bool:
+    """One-retry policy: retry only runtime-flavored failures.
+
+    Deterministic errors (bad input, config or shape bugs: ValueError,
+    TypeError, AssertionError, ...) would fail identically on a retry.
+    Transient device state is the retry target: RuntimeError (CUDA errors
+    and ``torch.cuda.OutOfMemoryError`` are ones) and anything whose
+    message carries a transient status code.
+    """
+    if isinstance(e, (ValueError, OSError)) and \
+            not isinstance(e, RuntimeError):
+        return False
+    if isinstance(e, (NotImplementedError, RecursionError)):
+        # RuntimeError subclasses by inheritance, but deterministic
+        return False
+    if isinstance(e, RuntimeError):
+        return True
+    name = type(e).__name__
+    if "Runtime" in name or "Xla" in name:
+        return True
+    msg = str(e)
+    return any(m in msg for m in _TRANSIENT_MARKERS)
+
+
+def _refuse(msg: str) -> int:
+    print(f"gaussdca_tpu_torch: error: {msg}", file=sys.stderr, flush=True)
+    return 2
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.fallback:
+        return _refuse("--fallback is not supported: the port has no plain "
+                       "path on the card (pass --device cpu to run the "
+                       "plain versions on the CPU)")
+    mesh_spec = _parse_mesh(args.mesh)
+    if args.distributed and mesh_spec is not None:
+        return _refuse("--distributed with --mesh: pod mesh not yet ported "
+                       "(ROADMAP A)")
+    try:
+        cfg = GDCAConfig(
+            pseudocount=args.pseudocount, theta=_parse_theta(args.theta),
+            max_gap_fraction=args.max_gap_fraction, score=args.score,
+            min_separation=args.min_separation, remove_dups=args.remove_dups,
+            dtype=args.dtype, device=args.device)
+    except ValueError as e:
+        return _refuse(str(e))
+    dev = cfg.resolve_device()
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return _refuse(f"--device {args.device}: no CUDA device is visible "
+                       "(pass --device cpu to run on the CPU)")
+
+    # stems are assigned over the FULL batch (collision disambiguation
+    # has to agree across --distributed processes sharing an output dir)
+    inputs = list(args.inputs)
+    stems = _output_stems(inputs)
+    merge_path = args.merge_output
+    owns_group = False
+    pidx, pcnt = 0, 1
+    if args.distributed:
+        owns_group = not torch.distributed.is_initialized()
+        pidx, pcnt = meshlib.init_distributed(force=True)
+        inputs = meshlib.shard_families(inputs, pidx, pcnt)
+        stems = meshlib.shard_families(stems, pidx, pcnt)
+        if merge_path is not None and pcnt > 1:
+            # one file per process: a shared path opened by each would
+            # truncate the others' lines
+            merge_path = f"{merge_path}.part{pidx}of{pcnt}"
+        if dev.type == "cuda" and dev.index is None:
+            # one card a process, round-robin over the visible cards
+            dev = torch.device("cuda", pidx % torch.cuda.device_count())
+            cfg = dataclasses.replace(cfg, device=str(dev))
+        if not args.quiet:
+            print(json.dumps({"process": pidx, "of": pcnt,
+                              "families": len(inputs), "device": str(dev)}),
+                  file=sys.stderr, flush=True)
+
+    mesh_obj = None
+    if mesh_spec is not None:
+        try:
+            if dev.type == "cpu":
+                if mesh_spec == "auto":
+                    raise ValueError("--mesh auto lays a mesh over CUDA "
+                                     "cards; with --device cpu give a "
+                                     "shape like 2,2")
+                dp, tp = mesh_spec
+                mesh_obj = Mesh([dev] * (dp * tp), (dp, tp))
+            else:
+                mesh_obj = api.resolve_mesh(mesh_spec)
+        except ValueError as e:
+            return _refuse(str(e))
+        if not args.quiet:
+            print(json.dumps({"mesh": mesh_obj.shape}), file=sys.stderr,
+                  flush=True)
+    mesh_desc = _mesh_desc(mesh_obj)
+
+    profiler = None
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+
+    t0 = time.perf_counter()
+    n_err = 0
+    pool = None if args.no_prefetch else \
+        concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cache_keys: List[Optional[str]] = [None] * len(inputs)
+
+    def submit(k: int, futures) -> None:
+        # skip the parse of a family the artifact cache will serve (the
+        # key is kept and passed down: the file is hashed only once)
+        if pool is None or k >= len(inputs):
+            return
+        if args.cache_dir:
+            try:
+                cache_keys[k] = _cache_key(inputs[k], cfg, args.top_k,
+                                           mesh_desc)
+                if os.path.exists(os.path.join(args.cache_dir,
+                                               cache_keys[k])):
+                    return
+            except OSError:
+                pass
+        futures[k] = pool.submit(fasta.read_fasta_alignment, inputs[k],
+                                 cfg.max_gap_fraction)
+
+    merge_fh = None
+    try:
+        if merge_path:
+            os.makedirs(os.path.dirname(os.path.abspath(merge_path)),
+                        exist_ok=True)
+            merge_fh = open(merge_path, "w")
+        futures = [None] * len(inputs)
+        submit(0, futures)
+        for k, path in enumerate(inputs):
+            submit(k + 1, futures)
+            try:
+                try:
+                    out_path = run_family(
+                        path, cfg, args.output_dir, args.top_k,
+                        args.cache_dir, args.quiet, msa_future=futures[k],
+                        stem=stems[k], cache_key=cache_keys[k],
+                        mesh=mesh_obj)
+                except Exception as e:
+                    if not _retryable(e):
+                        raise  # deterministic errors: fail fast
+                    # transient device state: one bounded retry,
+                    # parsing the file again (the prefetched future
+                    # is consumed). An illegal address poisons the CUDA
+                    # context, so after one the retry fails too.
+                    if isinstance(e, torch.cuda.OutOfMemoryError):
+                        torch.cuda.empty_cache()
+                    print(json.dumps({"family": path, "retry": True,
+                                      "error": str(e)[:500]}),
+                          file=sys.stderr, flush=True)
+                    out_path = run_family(
+                        path, cfg, args.output_dir, args.top_k,
+                        args.cache_dir, args.quiet, stem=stems[k],
+                        cache_key=cache_keys[k], mesh=mesh_obj)
+                if merge_fh is not None:
+                    with open(out_path) as fh:
+                        for line in fh:
+                            merge_fh.write(f"{stems[k]} {line}")
+            except Exception as e:
+                # a family that fails twice (or has bad input) must not
+                # abort the rest of the batch: record it and continue
+                n_err += 1
+                print(json.dumps({"family": path,
+                                  "error_type": type(e).__name__,
+                                  "error": str(e)[:500]}),
+                      file=sys.stderr, flush=True)
+    finally:
+        if merge_fh is not None:
+            merge_fh.close()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            name = "trace.json" if pcnt == 1 else \
+                f"trace.part{pidx}of{pcnt}.json"
+            profiler.export_chrome_trace(os.path.join(args.profile_dir,
+                                                      name))
+        if owns_group:
+            torch.distributed.destroy_process_group()
+    if not args.quiet:
+        print(json.dumps({
+            "batch": len(inputs), "errors": n_err,
+            "total_s": round(time.perf_counter() - t0, 3),
+        }), file=sys.stderr, flush=True)
+    return 1 if n_err else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

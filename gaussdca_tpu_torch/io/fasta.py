@@ -14,18 +14,21 @@ Reproduces the ingest contract the reference consumes from DCAUtils'
 
 The output is sequence-major ``[M, N]`` (the reference is position-major
 ``N x M``; sequence-major makes M, the sequence axis, the leading one).
-Parsing happens on the host in NumPy, byte for byte the parser of
-``gaussdca_tpu.io.fasta``; tokens are moved to the device once,
-downstream of dedup.
+Parsing happens on the host: in the native C++ parser (``io/native.py``)
+where it builds, else in NumPy, byte for byte the parser of
+``gaussdca_tpu.io.fasta``; the MSA records which one ran. Tokens are moved
+to the device once, downstream of dedup.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+
+from gaussdca_tpu_torch.io import native
 
 GAP_STATE = 21
 
@@ -58,6 +61,8 @@ class MSA:
     headers: the M FASTA headers (without the leading '>').
     q: alphabet size = max observed state (21 for standard protein data).
     n_dropped_gaps: sequences removed by the gap-fraction filter.
+    parser: "native" or "numpy", the parser that read the file (None for
+    an MSA built from arrays).
     """
 
     tokens: np.ndarray
@@ -65,6 +70,7 @@ class MSA:
     q: int
     n_dropped_gaps: int = 0
     n_dropped_dups: int = 0
+    parser: Optional[str] = None
 
     @property
     def M(self) -> int:
@@ -148,15 +154,27 @@ def _read_records(path: str) -> List[Tuple[str, bytes]]:
     return records
 
 
-def read_fasta_alignment(path: str, max_gap_fraction: float) -> MSA:
+def read_fasta_alignment(path: str, max_gap_fraction: float, *,
+                         use_native: Optional[bool] = None) -> MSA:
     """Parse a (gzipped) FASTA alignment into an MSA token matrix.
 
     Matches the DCAUtils ``read_fasta_alignment(filename, max_gap_fraction)``
     contract consumed at src/GaussDCA.jl:20 (see module docstring), except
-    the output is sequence-major [M, N].
+    the output is sequence-major [M, N]. ``use_native``: None takes the
+    native parser when it builds, else NumPy; True takes the native parser
+    and raises RuntimeError (with g++'s output) when it does not build;
+    False takes NumPy. ``MSA.parser`` says which ran.
     """
     if not os.path.isfile(path):
         raise ValueError(f"cannot open file {path}")
+
+    if use_native is None:
+        use_native = native.available()
+    if use_native:
+        tokens, headers, q, n_dropped = native.parse_fasta(
+            path, max_gap_fraction)
+        return MSA(tokens=tokens, headers=headers, q=q,
+                   n_dropped_gaps=n_dropped, parser="native")
 
     records = _read_records(path)
 
@@ -184,13 +202,15 @@ def read_fasta_alignment(path: str, max_gap_fraction: float) -> MSA:
         headers.append(header)
 
     if not rows:
+        # "%f", as the native parser's std::to_string prints it
         raise ValueError(
             f"invalid FASTA file {path}: all sequences exceed "
-            f"max_gap_fraction={max_gap_fraction}")
+            f"max_gap_fraction={max_gap_fraction:f}")
 
     tokens = np.stack(rows)
     q = int(tokens.max())
-    return MSA(tokens=tokens, headers=headers, q=q, n_dropped_gaps=n_dropped)
+    return MSA(tokens=tokens, headers=headers, q=q, n_dropped_gaps=n_dropped,
+               parser="numpy")
 
 
 def remove_duplicate_sequences(msa: MSA) -> MSA:
@@ -209,4 +229,5 @@ def remove_duplicate_sequences(msa: MSA) -> MSA:
         q=msa.q,
         n_dropped_gaps=msa.n_dropped_gaps,
         n_dropped_dups=dropped,
+        parser=msa.parser,
     )

@@ -10,9 +10,13 @@ gives JAX virtual devices; on a machine with several cards the same code
 puts one shard on each.
 
 The collectives are plain functions over the per-shard tensors (one
-process drives every shard, so nothing here uses ``torch.distributed``).
+process drives every shard, so they use no ``torch.distributed``).
 ``Tensor.to`` onto the tensor's own device returns the tensor itself, so a
 "broadcast" slab may alias its owner's: callers never update one in place.
+
+Across processes there is family mode only: ``init_distributed`` joins the
+process group and ``shard_families`` deals each process its families; the
+processes run no collective.
 """
 
 from __future__ import annotations
@@ -133,3 +137,43 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     (shards on one device share it: read-only)."""
     on = {d: x.to(d) for d in mesh.distinct}
     return [on[d] for d in mesh.flat]
+
+
+def init_distributed(force: bool = False) -> Tuple[int, int]:
+    """Join the process group of a multi-process batch run; returns
+    (rank, world size).
+
+    Rendezvous is torchrun's contract: ``init_method="env://"``, where
+    torch reads ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and
+    ``WORLD_SIZE``. The backend is gloo on every device, because family
+    mode runs no collective (each process scores its own families).
+    ``force=True`` (the CLI's ``--distributed``) lets torch raise when the
+    rendezvous is not configured: running single-process would contradict
+    what the user asked for. Without ``force`` an unconfigured rendezvous
+    is the single-process run, (0, 1). A group already joined is kept."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        try:
+            dist.init_process_group(backend="gloo", init_method="env://")
+        except ValueError:
+            if force:
+                raise
+            return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def shard_families(paths: Sequence, process_index: Optional[int] = None,
+                   process_count: Optional[int] = None) -> list:
+    """Round-robin family assignment for multi-process batch runs: each
+    family is independent, so process p of P takes families p, p + P, ...
+    The defaults are this process's rank and the group's size (0 and 1
+    outside a process group)."""
+    import torch.distributed as dist
+
+    joined = dist.is_available() and dist.is_initialized()
+    p = (dist.get_rank() if joined else 0) if process_index is None \
+        else process_index
+    n = (dist.get_world_size() if joined else 1) if process_count is None \
+        else process_count
+    return [f for k, f in enumerate(paths) if k % n == p]

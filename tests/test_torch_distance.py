@@ -347,3 +347,23 @@ def test_match_counts_triangle_cover(M):
     assert (writes == 1).all()
     np.testing.assert_array_equal(
         out, tdist.match_counts_torch(torch.as_tensor(Z), q).numpy())
+
+
+@pytest.mark.parametrize("M", [32768, 100000])
+def test_triangle_tiles_at_depth(M):
+    """The triangle walk of kernels A and D at the depths of the main
+    paths (M = 100,000 is the deep auto-theta cell: M^2 > 2^31): every
+    launch index maps to a distinct tile ti <= tj < T, all T (T + 1) / 2
+    of them, and the grid and the tiles' row offsets stay in 31 bits."""
+    T = -(-M // 128)
+    t = np.arange(T * (T + 1) // 2, dtype=np.int64)
+    tj = ((np.sqrt(8.0 * t + 1.0) - 1.0) * 0.5).astype(np.int64)
+    for _ in range(2):      # the kernel's integer fixes, vectorized
+        tj += (tj + 1) * (tj + 2) // 2 <= t
+        tj -= tj * (tj + 1) // 2 > t
+    ti = t - tj * (tj + 1) // 2
+    assert ((0 <= ti) & (ti <= tj) & (tj < T)).all()
+    assert np.unique(ti * T + tj).size == t.size
+    assert t.size < 2 ** 31 and (tj.max() + 1) * 128 < 2 ** 31
+    assert all(_triangle_tile(int(k)) == (ti[k], tj[k])
+               for k in (0, 1, t.size // 2, t.size - 1))
