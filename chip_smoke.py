@@ -77,13 +77,26 @@ prints no result line):
    head of the ranking) and ``cli profile`` (``--profile-dir``: the trace
    names kernel A); then family mode, two processes of the port's
    ``podspawn`` on cuda:0 with ``--distributed --merge-output``, whose
-   part files hold the merged file's lines.
+   part files hold the merged file's lines; then the pod (``cli pod``):
+   two processes on cuda:0 with ``--distributed --mesh 2,2`` (two shards
+   a process, gloo staging through host buffers) run the frob and DI
+   batches as one sharded program, process 0's outputs within 1e-5 frob /
+   2e-4 DI of the ``cli`` run's and of the one-process 2x2 mesh's (the
+   small golden family within its f32 golden envelope; the 32768x384 frob
+   family and the DI family take
+   the storage-sharded solve, the deep one the replicated solve computed
+   once and broadcast), process 1 writing nothing, and again from the
+   cache (``cli pod cached``); each process prints its families'
+   ``pipeline`` walls, its batch walls with the host time inside
+   ``torch.distributed`` calls, its peak device memory, and the DI
+   family's stages through ``sharded_scores`` once more.
 
 The launch counters are zeroed right before each path of phases 4-8 and
 read after it; each path fails if a kernel of it never ran (A and B in 4,
 C and B in 5, A in 6, E, C, F and D in the four paths of 7, where
-kernel A must not run, and A, B, C as named in 8); family mode sums the
-two processes' counts. The line before the last is the kernel summary
+kernel A must not run, and A, B, C as named in 8, where the pod runs C
+and B and not A, and its cached rerun nothing); family mode and the pod
+sum the two processes' counts. The line before the last is the kernel summary
 JSON; the last line is ``{"ok": true, "device": {...}}``. No CUDA
 device: exit 1, no result.
 """
@@ -1172,16 +1185,25 @@ def check_cached(recs: dict, out: str, ref: str) -> None:
     log("[cli cached] every family cached: true, outputs byte-identical")
 
 
-def check_mesh(out: str, ref: str) -> None:
-    for name in FROB_BATCH:
-        got = read_rank_text(os.path.join(out, name + ".rank.txt"))
-        want = read_rank_text(os.path.join(ref, name + ".rank.txt"))
-        diff = max(abs(got[k] - want[k]) for k in want) \
-            if set(got) == set(want) else float("inf")
-        log(f"[cli mesh] {name} --mesh 1,1 vs one device: max abs diff "
-            f"{diff:.3e} (limit 1e-5)")
-        if not diff <= 1e-5:
-            raise AssertionError(f"cli mesh {name} disagrees")
+def max_abs_diff(got: dict, want: dict) -> float:
+    """Max abs difference of two rankings over the same pair set (inf when
+    the pair sets differ)."""
+    if set(got) != set(want):
+        return float("inf")
+    return max(abs(got[k] - want[k]) for k in want)
+
+
+def check_close(out: str, ref: str, what: str, limits: dict) -> None:
+    """Each family's output in ``out`` against ``ref``'s: the same pair
+    set and max abs difference within its limit (name -> limit)."""
+    for name, limit in limits.items():
+        diff = max_abs_diff(
+            read_rank_text(os.path.join(out, name + ".rank.txt")),
+            read_rank_text(os.path.join(ref, name + ".rank.txt")))
+        log(f"[{what}] {name} vs one device: max abs diff {diff:.3e} "
+            f"(limit {limit:g})")
+        if not diff <= limit:
+            raise AssertionError(f"{what} {name} disagrees")
 
 
 def check_top_k(out: str, ref: str) -> None:
@@ -1288,6 +1310,221 @@ def phase_family_mode(files: dict, out: str, ref: str) -> dict:
     return total
 
 
+_POD_CHILD = r"""
+import json, time
+import torch
+from gaussdca_tpu_torch import api
+from gaussdca_tpu_torch.cli import main
+from gaussdca_tpu_torch.ops import di_kernel, distance
+from gaussdca_tpu_torch.parallel import mesh as meshlib
+
+runs, di_file = json.loads(argv[0]), argv[1]
+counters = {k: getattr(m, k) for k, m in (
+    ("row_stats", distance), ("row_stats_rect", distance),
+    ("di_pairs", di_kernel), ("match_counts", distance),
+    ("row_stats_asym", distance), ("row_stats_sym_e8", distance))}
+# joined here, once for the four batches: cuda:0 shared, so gloo
+meshlib.init_distributed(force=True, device="cuda")
+walls = []
+real = api.gdca_from_msa
+# host time inside the torch.distributed calls (gloo returns when done;
+# the staging copies through the host are outside)
+comm = [0.0]
+
+
+def in_comm(fn):
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            comm[0] += time.perf_counter() - t0
+    return call
+
+
+for name in ("all_gather", "all_reduce", "broadcast", "reduce",
+             "all_to_all_single", "broadcast_object_list"):
+    setattr(torch.distributed, name, in_comm(getattr(torch.distributed,
+                                                     name)))
+
+
+def timed(msa, cfg, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = real(msa, cfg, **kw)
+    torch.cuda.synchronize()
+    walls.append([f"{msa.M}x{msa.N}", time.perf_counter() - t0])
+    return r
+
+
+api.gdca_from_msa = timed
+torch.cuda.reset_peak_memory_stats()
+res = []
+for argv_k in runs:
+    for fn in counters.values():
+        fn.launches = 0
+    walls.clear()
+    comm[0] = 0.0
+    t0 = time.perf_counter()
+    rc = main(argv_k)
+    res.append({"rc": rc, "wall": time.perf_counter() - t0,
+                "pipeline": list(walls), "collective_s": comm[0],
+                "launches": {k: fn.launches for k, fn in counters.items()}})
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+# the DI family's stages once more, through sharded_scores, each ended
+# by a device sync: (wall, of it inside torch.distributed calls)
+from gaussdca_tpu_torch.core.config import GDCAConfig
+from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
+from gaussdca_tpu_torch.io import fasta
+from gaussdca_tpu_torch.parallel.sharded import pad_rows, sharded_scores
+
+msa = fasta.read_fasta_alignment(di_file, 0.9)
+mesh = meshlib.make_pod_mesh((2, 2), "cuda")
+cfg = GDCAConfig(score="DI", pseudocount=0.2, theta=0.2, device="cuda")
+stages, last = {}, [time.perf_counter(), 0.0]
+comm[0] = 0.0
+
+
+def mark(stage):
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    stages[stage] = [now - last[0], comm[0] - last[1]]
+    last[:] = [now, comm[0]]
+
+
+with full_f32_matmuls():
+    sharded_scores(mesh, pad_rows(torch.as_tensor(msa.tokens), mesh.size),
+                   cfg, msa.q, m_true=msa.M, mark=mark)
+print(json.dumps({"runs": res, "backend": torch.distributed.get_backend(),
+                  "peak_gib": peak, "di_stages": stages}))
+"""
+
+
+def check_pod_outputs(files: dict, pod: str, ref: str) -> None:
+    """Process 0's outputs against the one-process ``cli`` run's (one
+    device) and against ``gdca_from_msa`` on the one-process mesh of the
+    same shape (four shards of cuda:0, 2 x 2): the same pair sets; the
+    real-size families within 1e-5 (frob) / 2e-4 (DI) of both. The small
+    golden family is held to its f32 golden envelope (5e-4), since in f32
+    its four-shard sums already move it by ~1e-4 from one device (both
+    differences logged). Every difference is logged before any fails."""
+    import torch
+    from gaussdca_tpu_torch import api
+    from gaussdca_tpu_torch.core.config import GDCAConfig
+    from gaussdca_tpu_torch.io import fasta
+    from gaussdca_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([torch.device("cuda", 0)] * 4, (2, 2))
+    gold = _load_golden(os.path.join(GOLDEN_DIR, "small.FNRout.txt"))
+    failed = []
+    for name in (*FROB_BATCH, "di1024x1000"):
+        kw = dict(score="DI", pseudocount=0.2, theta=0.2) \
+            if name == "di1024x1000" else {}
+        msa = fasta.read_fasta_alignment(files[name], 0.9)
+        r = api.gdca_from_msa(msa, GDCAConfig(device="cuda",
+                                              dtype=torch.float32, **kw),
+                              mesh=mesh)
+        got = read_rank_text(os.path.join(pod, name + ".rank.txt"))
+        refs = {"one device (cli)": read_rank_text(
+                    os.path.join(ref, name + ".rank.txt")),
+                "one-process 2x2 mesh": {(i, j): x
+                                         for i, j, x in r.ranking}}
+        if name == "small":
+            refs["golden file"] = gold
+        limit = 2e-4 if "di" in name else 1e-5
+        for what, want in refs.items():
+            diff = max_abs_diff(got, want)
+            lim = (5e-4 if what == "golden file" else None) \
+                if name == "small" else limit
+            log(f"[cli pod] {name} vs {what}: max abs diff {diff:.3e} "
+                + (f"(limit {lim:g})" if lim else "(logged)"))
+            if diff == float("inf") or (lim and not diff <= lim):
+                failed.append(f"{name} vs {what}")
+    if failed:
+        raise AssertionError(f"the pod's outputs disagree: {failed}")
+
+
+def phase_pod(files: dict, tmp: str, ref: str) -> tuple:
+    """The pod: two processes of one job on cuda:0 (the port's podspawn),
+    each with ``--distributed --mesh 2,2`` (two shards a process, gloo
+    through host buffers), run the frob batch (merged) and the DI batch,
+    then both again from the cache. Process 0's outputs are held against
+    the one-process runs (``check_pod_outputs``), process 1 writes
+    nothing, the rerun is served from the cache. Returns the
+    launch counts of the first two batches and of the reruns, each summed
+    over the processes."""
+    from gaussdca_tpu_torch.parallel.podspawn import spawn_pod
+
+    cache = os.path.join(tmp, "cache_pod")
+    outs = [os.path.join(tmp, f"out_pod{i}") for i in range(2)]
+
+    def runs(out):
+        pod = ["--distributed", "--mesh", "2,2", "--cache-dir", cache]
+        frob = [*(files[n] for n in FROB_BATCH), "-o", out, "--merge-output",
+                os.path.join(out, "merged.txt"), *pod]
+        di = [files["di1024x1000"], "-o", out, *DI_ARGS, *pod]
+        return [frob, di, frob, di]
+
+    t0 = time.perf_counter()
+    res = spawn_pod(_POD_CHILD, timeout=600,
+                    args_per_proc=lambda i: [json.dumps(runs(outs[i])),
+                                             files["di1024x1000"]])
+    wall = time.perf_counter() - t0
+    first, again = {}, {}
+    for i, (rc, sout, serr) in enumerate(res):
+        for line in serr.splitlines():
+            if line.startswith("{"):
+                log(f"[cli pod p{i}] {line}")
+        if rc != 0:
+            raise AssertionError(f"pod process {i} exited {rc}:\n"
+                                 f"{sout[-2000:]}\n{serr[-3000:]}")
+        r = json.loads(sout.strip().splitlines()[-1])
+        log(f"[cli pod p{i}] backend {r['backend']}, peak device memory "
+            f"{r['peak_gib']:.2f} GiB")
+        for k, (name, run) in enumerate(zip(
+                ("frob", "DI", "frob cached", "DI cached"), r["runs"])):
+            log(f"[cli pod p{i}] {name}: rc {run['rc']}, batch "
+                f"{run['wall']:.3f} s (host clock around cli.main; in "
+                f"torch.distributed calls {run['collective_s']:.3f} s); "
+                "pipeline walls (s): " + ", ".join(
+                    f"{fam} {t:.3f}" for fam, t in run["pipeline"])
+                + f"; launches {run['launches']}")
+            if run["rc"] != 0:
+                raise AssertionError(f"pod process {i}: {name} exited "
+                                     f"{run['rc']}")
+            into = first if k < 2 else again
+            for kern, n in run["launches"].items():
+                into[kern] = into.get(kern, 0) + n
+        log(f"[cli pod p{i}] DI 1024x1000 stages through sharded_scores, "
+            "wall / in torch.distributed calls (s): " + ", ".join(
+                f"{st} {w:.3f} / {c:.3f}"
+                for st, (w, c) in r["di_stages"].items()))
+        if r["backend"] != "gloo":
+            raise AssertionError("two processes on one card must take gloo")
+    log(f"[cli pod] 2 processes on cuda:0: {wall:.1f} s wall (process start "
+        "included)")
+    if os.path.exists(outs[1]):
+        raise AssertionError("pod process 1 wrote outputs")
+    check_pod_outputs(files, outs[0], ref)
+    cached = [json.loads(line) for line in res[0][2].splitlines()
+              if line.startswith('{"family"')][-len(FROB_BATCH) - 1:]
+    if len(cached) != len(FROB_BATCH) + 1 or not all(
+            c.get("cached") is True for c in cached):
+        raise AssertionError("the pod's rerun was not served from the cache")
+    want = []
+    for name in FROB_BATCH:
+        with open(os.path.join(outs[0], name + ".rank.txt")) as fh:
+            want += [f"{name} {line}" for line in fh]
+    with open(os.path.join(outs[0], "merged.txt")) as fh:
+        if fh.readlines() != want:
+            raise AssertionError("the pod's merged file is not its "
+                                 "per-family files")
+    log("[cli pod] process 1 wrote nothing; the rerun: every family "
+        "cached: true")
+    return first, again
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "gaussdca_tpu_torch")):
         log("chip_smoke: gaussdca_tpu_torch/ is not beside this script")
@@ -1392,7 +1629,8 @@ def main() -> int:
         drive("cli mesh", ("row_stats_rect",), lambda: run_cli([
             *(files[n] for n in FROB_BATCH), "-o", mesh_out, "--mesh",
             "1,1"]))
-        check_mesh(mesh_out, out)
+        check_close(mesh_out, out, "cli mesh --mesh 1,1",
+                    {n: 1e-5 for n in FROB_BATCH})
         top_out = os.path.join(tmp, "out_top")
         drive("cli top_k", ("row_stats",), lambda: run_cli([
             files["frob32768x384"], "-o", top_out, "--top-k", 100]))
@@ -1407,6 +1645,24 @@ def main() -> int:
             files, os.path.join(tmp, "out_family"), out)
         log(f"[main path: cli family] kernel launches (both processes): "
             f"{by_path['cli family']}")
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        by_path["cli pod"], by_path["cli pod cached"] = phase_pod(
+            files, tmp, out)
+        for path, needs, absent in (
+                ("cli pod", ("row_stats_rect", "di_pairs"), ("row_stats",)),
+                ("cli pod cached", (), tuple(counters))):
+            log(f"[main path: {path}] kernel launches (both processes): "
+                f"{by_path[path]}")
+            for k in needs:
+                if by_path[path][k] <= 0:
+                    raise AssertionError(f"kernel {k} never ran on the "
+                                         f"{path} path")
+            for k in absent:
+                if by_path[path][k] != 0:
+                    raise AssertionError(f"kernel {k} ran on the {path} "
+                                         "path")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -22,7 +22,7 @@ import torch
 from gaussdca_tpu_torch.core.config import GDCAConfig
 from gaussdca_tpu_torch.core.runtime import full_f32_matmuls, no_mark
 from gaussdca_tpu_torch.io import fasta
-from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh
+from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh, make_pod_mesh
 from gaussdca_tpu_torch.score.apc import correct_apc
 from gaussdca_tpu_torch.score.di import di_score
 from gaussdca_tpu_torch.score.frob import frob_score
@@ -107,21 +107,34 @@ def _checked_ranking(S: torch.Tensor, min_separation: int,
     return R
 
 
-def resolve_mesh(mesh) -> Mesh:
+def resolve_mesh(mesh, device=None) -> Mesh:
     """Normalize a ``mesh`` argument: Mesh | "auto" | (dp, tp) -> Mesh.
-    "auto" and a shape take the visible CUDA cards and raise when there
-    are too few."""
+
+    In a joined process group of more than one process (the pod) "auto"
+    is one shard a process and a shape is split evenly over the
+    processes (``make_pod_mesh``: ValueError when the world size does
+    not divide it), each process's shards on ``device`` (default: the
+    card ``rank % count``). Otherwise "auto" and a shape take the visible
+    CUDA cards and raise when there are too few."""
     if isinstance(mesh, Mesh):
         return mesh
-    if isinstance(mesh, str) and mesh == "auto":
+    auto = isinstance(mesh, str) and mesh == "auto"
+    shape = isinstance(mesh, (tuple, list)) and len(mesh) == 2
+    if not (auto or shape):
+        raise ValueError(
+            f"invalid mesh: {mesh!r} (expected a "
+            "gaussdca_tpu_torch.parallel.mesh.Mesh, 'auto', "
+            "or a (data, model) shape tuple)")
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        return make_pod_mesh(None if auto else mesh,
+                             "cuda" if device is None else device)
+    if auto:
         return make_mesh()
-    if isinstance(mesh, (tuple, list)) and len(mesh) == 2:
-        return make_mesh(int(mesh[0]) * int(mesh[1]),
-                         shape=(int(mesh[0]), int(mesh[1])))
-    raise ValueError(
-        f"invalid mesh: {mesh!r} (expected a "
-        "gaussdca_tpu_torch.parallel.mesh.Mesh, 'auto', "
-        "or a (data, model) shape tuple)")
+    return make_mesh(int(mesh[0]) * int(mesh[1]),
+                     shape=(int(mesh[0]), int(mesh[1])))
 
 
 def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
@@ -135,7 +148,10 @@ def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
     ``mesh``: a ``Mesh``, a ``(dp, tp)`` shape or "auto" (every visible
     card) runs the sharded pipeline over it instead of ``cfg.device``
     (whose type must match the mesh's devices). Results match the
-    single-device run to floating-point summation order."""
+    single-device run to floating-point summation order. In a joined
+    process group every process calls this with the same MSA and a
+    pod mesh (``resolve_mesh``): each holds the whole padded token matrix
+    and its own shards, and each gets the same ranking."""
     if cfg.remove_dups:
         msa = fasta.remove_duplicate_sequences(msa)
     q = msa.q
@@ -150,7 +166,7 @@ def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
         from gaussdca_tpu_torch.parallel.sharded import pad_rows, \
             sharded_scores
 
-        mesh = resolve_mesh(mesh)
+        mesh = resolve_mesh(mesh, cfg.resolve_device())
         if mesh.home.type != cfg.resolve_device().type:
             raise ValueError(
                 f"mesh on {mesh.home.type} devices but device="

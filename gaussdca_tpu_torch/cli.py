@@ -21,6 +21,13 @@ pipeline, emit).
   ``torch.distributed`` job (torchrun's ``env://`` rendezvous), each
   scoring its own families on its own device; with ``--merge-output``
   each process writes ``<path>.part<i>of<n>``.
+- ``--distributed --mesh DP,TP`` is the pod: every process parses every
+  family and runs the same sharded program over one mesh of DP x TP
+  shards split evenly over the processes (``parallel/mesh.py``), and
+  process 0 alone writes. What every process runs is agreed first
+  (process 0's cache hits and its output setup are broadcast; a failed
+  setup exits 2 on every process), and a failure inside the program
+  prints ``pod_abort`` and raises on that process, never retried.
 
 Nothing runs on the CPU unless ``--device cpu`` says so: ``--device cuda``
 (the default) without a card exits 2 before the batch. The JAX CLI's
@@ -107,10 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "a shape like '4,2' / '4x2' (with --device cpu, a "
                         "shape of CPU shards)")
     p.add_argument("--distributed", action="store_true",
-                   help="family mode: join the torch.distributed job "
-                        "(env:// rendezvous, as torchrun sets it) and deal "
-                        "the families round-robin to its processes; "
-                        "refused with --mesh (the pod mesh is not ported)")
+                   help="join the torch.distributed job (env:// "
+                        "rendezvous, as torchrun sets it): alone, deal the "
+                        "families round-robin to its processes; with "
+                        "--mesh, run one sharded program over a mesh "
+                        "spanning them all (process 0 writes)")
     p.add_argument("--merge-output", default=None,
                    help="additionally write one merged ranking file: "
                         "'<family> <i> <j> <score>' lines, all families "
@@ -180,11 +188,14 @@ def _cache_key(path: str, cfg: GDCAConfig, top_k: Optional[int],
 
 def _mesh_desc(mesh: Optional[Mesh]) -> str:
     """Cache-key descriptor of a mesh ('' = one device): mesh runs sum in
-    a different order, so artifacts must not be shared."""
+    a different order, so artifacts must not be shared; nor may a pod's
+    and a one-process mesh's of the same shape (their collectives sum in
+    another order)."""
     if mesh is None:
         return ""
+    pod = f":pod{mesh.world}" if mesh.world > 1 else ""
     return "mesh:" + "x".join(
-        f"{a}{mesh.shape[a]}" for a in mesh.axis_names)
+        f"{a}{mesh.shape[a]}" for a in mesh.axis_names) + pod
 
 
 def _stem(path: str) -> str:
@@ -212,33 +223,78 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
                top_k: Optional[int], cache_dir: Optional[str],
                quiet: bool, msa_future=None, stem: Optional[str] = None,
                cache_key: Optional[str] = None,
-               mesh: Optional[Mesh] = None) -> str:
-    """Process one family; returns the output path.
+               mesh: Optional[Mesh] = None, emit: bool = True,
+               cache_read: bool = True, cache_only: bool = False,
+               emit_errors_fatal: bool = True) -> Optional[str]:
+    """Process one family; returns the output path (None when nothing
+    was written).
 
     ``msa_future``: optional concurrent.futures.Future holding the
     prefetched ingest result (or raising its parse error).
     ``cache_key``: precomputed ``_cache_key`` (the batch loop computes it
     for prefetch decisions; avoids hashing the file twice).
+
+    The pod's contract (``--distributed --mesh``), as in
+    ``gaussdca_tpu.cli.run_family``: ``emit=False`` runs the pipeline
+    and writes nothing (a non-writer process: it takes part in the
+    collectives, process 0 owns the files). ``cache_read=False`` never
+    serves an existing artifact (the pod decides cache hits together: one
+    process skipping the collective program on a hit only it sees would
+    leave the others waiting). ``emit_errors_fatal=False``: a writer's
+    I/O failure after the program (output or cache write) is recorded in
+    the family's log and reported as None instead of raised, so process
+    0 stays in step with the peers entering the next family.
+    ``cache_only=True``: the pod agreed this family is a cache hit (every
+    peer skipped it): serve the artifact or record its absence, never
+    compute, since entering the program alone would wedge the pod.
     """
     if stem is None:
         stem = _stem(path)
     out_path = os.path.join(out_dir, stem + ".rank.txt")
-    os.makedirs(out_dir, exist_ok=True)
+    if emit:
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+        except OSError:
+            if emit_errors_fatal:
+                raise
+            # recorded by the emit stage below, which tries again
     device = str(mesh.home if mesh is not None else cfg.resolve_device())
     log = RunLog(stem, enabled=not quiet)
 
+    def write_failed(err: str) -> None:
+        log.set(emit_error=err)
+        log.emit()
+
     cached = None
-    if cache_dir:
-        os.makedirs(cache_dir, exist_ok=True)
+    if cache_dir and emit:
+        try:
+            os.makedirs(cache_dir, exist_ok=True)
+        except OSError:
+            if emit_errors_fatal:
+                raise
         if cache_key is None:
             cache_key = _cache_key(path, cfg, top_k, _mesh_desc(mesh))
         cached = os.path.join(cache_dir, cache_key)
-        if os.path.exists(cached):
-            with open(cached) as fh, open(out_path, "w") as out:
-                out.write(fh.read())
+        if cache_read and os.path.exists(cached):
+            try:
+                with open(cached) as fh, open(out_path, "w") as out:
+                    out.write(fh.read())
+            except OSError as e:
+                if emit_errors_fatal:
+                    raise
+                write_failed(f"{type(e).__name__}: {e}")
+                return None
             log.set(cached=True, output=out_path, device=device)
             log.emit()
             return out_path
+    if cache_only:
+        # an agreed hit whose artifact is gone: serving needs no
+        # collective, so this is the writer's own failure
+        err = f"pod-agreed cache artifact missing: {cached}"
+        if emit_errors_fatal:
+            raise RuntimeError(err)
+        write_failed(err)
+        return None
 
     with log.stage("ingest"):
         if msa_future is not None:
@@ -247,17 +303,26 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
             msa = fasta.read_fasta_alignment(path, cfg.max_gap_fraction)
     with log.stage("pipeline"):
         result = api.gdca_from_msa(msa, cfg, top_k=top_k, mesh=mesh)
-    with log.stage("emit"):
-        R = result.ranking
-        text = format_rank(R)
-        with open(out_path, "w") as fh:
-            fh.write(text)
-        if cached:
-            # write, then rename: an interrupted run never leaves a
-            # truncated artifact for the next run to serve
-            with open(cached + ".part", "w") as fh:
+    if not emit:
+        return None
+    R = result.ranking
+    try:
+        with log.stage("emit"):
+            text = format_rank(R)
+            os.makedirs(out_dir, exist_ok=True)
+            with open(out_path, "w") as fh:
                 fh.write(text)
-            os.replace(cached + ".part", cached)
+            if cached:
+                # write, then rename: an interrupted run never leaves a
+                # truncated artifact for the next run to serve
+                with open(cached + ".part", "w") as fh:
+                    fh.write(text)
+                os.replace(cached + ".part", cached)
+    except OSError as e:
+        if emit_errors_fatal:
+            raise
+        write_failed(f"{type(e).__name__}: {e}")
+        return None
 
     fl = pipeline_flops(result.M, result.N, result.q, score=cfg.score,
                         auto_theta=cfg.auto_theta, dtype=cfg.resolve_dtype(),
@@ -317,9 +382,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                        "path on the card (pass --device cpu to run the "
                        "plain versions on the CPU)")
     mesh_spec = _parse_mesh(args.mesh)
-    if args.distributed and mesh_spec is not None:
-        return _refuse("--distributed with --mesh: pod mesh not yet ported "
-                       "(ROADMAP A)")
     try:
         cfg = GDCAConfig(
             pseudocount=args.pseudocount, theta=_parse_theta(args.theta),
@@ -332,36 +394,62 @@ def main(argv: Optional[List[str]] = None) -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         return _refuse(f"--device {args.device}: no CUDA device is visible "
                        "(pass --device cpu to run on the CPU)")
+    # --distributed alone deals whole families to the processes, each
+    # running its own program; with --mesh it is the pod: every process
+    # runs the same sharded program over one mesh spanning them all
+    pod = bool(args.distributed and mesh_spec is not None)
+    owns_group = args.distributed and not torch.distributed.is_initialized()
+    try:
+        return _batch(args, cfg, dev, mesh_spec, pod)
+    finally:
+        if owns_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
+
+def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
+           pod: bool) -> int:
     # stems are assigned over the FULL batch (collision disambiguation
     # has to agree across --distributed processes sharing an output dir)
     inputs = list(args.inputs)
     stems = _output_stems(inputs)
     merge_path = args.merge_output
-    owns_group = False
     pidx, pcnt = 0, 1
+    is_writer = True
     if args.distributed:
-        owns_group = not torch.distributed.is_initialized()
-        pidx, pcnt = meshlib.init_distributed(force=True)
-        inputs = meshlib.shard_families(inputs, pidx, pcnt)
-        stems = meshlib.shard_families(stems, pidx, pcnt)
-        if merge_path is not None and pcnt > 1:
-            # one file per process: a shared path opened by each would
-            # truncate the others' lines
-            merge_path = f"{merge_path}.part{pidx}of{pcnt}"
-        if dev.type == "cuda" and dev.index is None:
-            # one card a process, round-robin over the visible cards
-            dev = torch.device("cuda", pidx % torch.cuda.device_count())
-            cfg = dataclasses.replace(cfg, device=str(dev))
+        pidx, pcnt = meshlib.init_distributed(force=True,
+                                              device=dev if pod else None)
+        # one card a process, round-robin over the visible cards
+        dev = meshlib.process_device(dev, pidx)
+        cfg = dataclasses.replace(cfg, device=str(dev))
+        if pod:
+            # every process runs the whole batch in order; process 0
+            # writes the outputs, once
+            is_writer = pidx == 0
+            if not is_writer:
+                merge_path = None
+        else:
+            inputs = meshlib.shard_families(inputs, pidx, pcnt)
+            stems = meshlib.shard_families(stems, pidx, pcnt)
+            if merge_path is not None and pcnt > 1:
+                # one file per process: a shared path opened by each
+                # would truncate the others' lines
+                merge_path = f"{merge_path}.part{pidx}of{pcnt}"
         if not args.quiet:
-            print(json.dumps({"process": pidx, "of": pcnt,
-                              "families": len(inputs), "device": str(dev)}),
-                  file=sys.stderr, flush=True)
+            joined = torch.distributed.is_initialized()
+            print(json.dumps({
+                "process": pidx, "of": pcnt, "pod_mesh": pod,
+                "families": len(inputs), "device": str(dev),
+                "backend": torch.distributed.get_backend()
+                if joined else None}), file=sys.stderr, flush=True)
 
     mesh_obj = None
     if mesh_spec is not None:
         try:
-            if dev.type == "cpu":
+            if pod:
+                mesh_obj = meshlib.make_pod_mesh(
+                    None if mesh_spec == "auto" else mesh_spec, dev,
+                    rank=pidx, world=pcnt)
+            elif dev.type == "cpu":
                 if mesh_spec == "auto":
                     raise ValueError("--mesh auto lays a mesh over CUDA "
                                      "cards; with --device cpu give a "
@@ -376,6 +464,51 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(json.dumps({"mesh": mesh_obj.shape}), file=sys.stderr,
                   flush=True)
     mesh_desc = _mesh_desc(mesh_obj)
+    # a pod of several processes: what every process runs is agreed
+    # before any compute, and its failures are never retried alone
+    lockstep = pod and pcnt > 1
+
+    cache_keys: List[Optional[str]] = [None] * len(inputs)
+    pod_skip = [False] * len(inputs)
+    if pod and args.cache_dir:
+        # a hit must skip the program on every process or on none:
+        # process 0 decides from its cache and tells the others
+        if is_writer:
+            for k, path in enumerate(inputs):
+                try:
+                    cache_keys[k] = _cache_key(path, cfg, args.top_k,
+                                               mesh_desc)
+                except OSError:
+                    cache_keys[k] = None
+            pod_skip = [bool(ck and os.path.exists(
+                os.path.join(args.cache_dir, ck))) for ck in cache_keys]
+        pod_skip = meshlib.broadcast_object(mesh_obj, pod_skip)
+
+    merge_fh = None
+    if lockstep:
+        # the writer's directories and merge file are set up before any
+        # compute and the outcome shared: a writer failing alone here
+        # would leave the peers waiting in the first family's program
+        setup_err = ""
+        if is_writer:
+            try:
+                os.makedirs(args.output_dir, exist_ok=True)
+                if args.cache_dir:
+                    os.makedirs(args.cache_dir, exist_ok=True)
+                if merge_path:
+                    os.makedirs(os.path.dirname(os.path.abspath(
+                        merge_path)), exist_ok=True)
+                    merge_fh = open(merge_path, "w")
+            except OSError as e:
+                setup_err = f"{type(e).__name__}: {e}"
+        setup_err = meshlib.broadcast_object(mesh_obj, setup_err)
+        if setup_err:
+            if merge_fh is not None:
+                merge_fh.close()
+            print(json.dumps({"pod_abort": True, "setup": True,
+                              "error": setup_err[:500]}),
+                  file=sys.stderr, flush=True)
+            return 2
 
     profiler = None
     if args.profile_dir:
@@ -390,14 +523,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     n_err = 0
     pool = None if args.no_prefetch else \
         concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    cache_keys: List[Optional[str]] = [None] * len(inputs)
 
     def submit(k: int, futures) -> None:
         # skip the parse of a family the artifact cache will serve (the
         # key is kept and passed down: the file is hashed only once)
         if pool is None or k >= len(inputs):
             return
-        if args.cache_dir:
+        if pod:
+            if pod_skip[k]:
+                return
+        elif args.cache_dir:
             try:
                 cache_keys[k] = _cache_key(inputs[k], cfg, args.top_k,
                                            mesh_desc)
@@ -409,9 +544,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         futures[k] = pool.submit(fasta.read_fasta_alignment, inputs[k],
                                  cfg.max_gap_fraction)
 
-    merge_fh = None
     try:
-        if merge_path:
+        if merge_path and merge_fh is None:
             os.makedirs(os.path.dirname(os.path.abspath(merge_path)),
                         exist_ok=True)
             merge_fh = open(merge_path, "w")
@@ -419,15 +553,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         submit(0, futures)
         for k, path in enumerate(inputs):
             submit(k + 1, futures)
+            if pod_skip[k] and not is_writer:
+                continue  # an agreed hit: nobody computes it
+            # cache reads follow the pod's decision, never local state
+            kw = dict(stem=stems[k], cache_key=cache_keys[k], mesh=mesh_obj,
+                      emit=is_writer, cache_read=not pod or pod_skip[k],
+                      cache_only=lockstep and pod_skip[k],
+                      emit_errors_fatal=not lockstep)
+            quiet = args.quiet or not is_writer
             try:
                 try:
                     out_path = run_family(
                         path, cfg, args.output_dir, args.top_k,
-                        args.cache_dir, args.quiet, msa_future=futures[k],
-                        stem=stems[k], cache_key=cache_keys[k],
-                        mesh=mesh_obj)
+                        args.cache_dir, quiet, msa_future=futures[k], **kw)
                 except Exception as e:
-                    if not _retryable(e):
+                    if lockstep or not _retryable(e):
                         raise  # deterministic errors: fail fast
                     # transient device state: one bounded retry,
                     # parsing the file again (the prefetched future
@@ -440,13 +580,31 @@ def main(argv: Optional[List[str]] = None) -> int:
                           file=sys.stderr, flush=True)
                     out_path = run_family(
                         path, cfg, args.output_dir, args.top_k,
-                        args.cache_dir, args.quiet, stem=stems[k],
-                        cache_key=cache_keys[k], mesh=mesh_obj)
-                if merge_fh is not None:
-                    with open(out_path) as fh:
-                        for line in fh:
-                            merge_fh.write(f"{stems[k]} {line}")
+                        args.cache_dir, quiet, **kw)
+                if is_writer and out_path is None:
+                    n_err += 1  # a recorded writer failure (pod)
+                elif merge_fh is not None and out_path is not None:
+                    try:
+                        with open(out_path) as fh:
+                            for line in fh:
+                                merge_fh.write(f"{stems[k]} {line}")
+                    except OSError:
+                        if not lockstep:
+                            raise
+                        n_err += 1
+                        print(json.dumps({"family": path,
+                                          "merge_error": True}),
+                              file=sys.stderr, flush=True)
             except Exception as e:
+                if lockstep:
+                    # the peers may already wait in this program's
+                    # collectives, and a retry or a skip would run a
+                    # different program here: abort the batch, visibly
+                    print(json.dumps({"family": path, "pod_abort": True,
+                                      "error_type": type(e).__name__,
+                                      "error": str(e)[:500]}),
+                          file=sys.stderr, flush=True)
+                    raise
                 # a family that fails twice (or has bad input) must not
                 # abort the rest of the batch: record it and continue
                 n_err += 1
@@ -465,8 +623,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"trace.part{pidx}of{pcnt}.json"
             profiler.export_chrome_trace(os.path.join(args.profile_dir,
                                                       name))
-        if owns_group:
-            torch.distributed.destroy_process_group()
     if not args.quiet:
         print(json.dumps({
             "batch": len(inputs), "errors": n_err,

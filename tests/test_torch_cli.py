@@ -311,7 +311,8 @@ def test_cache_key_tracks_settings_device_mesh_and_sources(tmp_path,
 
 @pytest.mark.parametrize("args,text", [
     (["--fallback"], "--device cpu"),
-    (["--distributed", "--mesh", "1,1"], "pod mesh not yet ported"),
+    (["--distributed", "--mesh", "3,1", "--device", "cpu"],
+     "do not split evenly over the 2 processes"),
     (["--device", "cuda"], "--device cpu"),
     ([], "--device cpu"),
 ])
@@ -322,6 +323,10 @@ def test_refusals_exit_2_before_computing(small, tmp_path, capsys,
 
     monkeypatch.setattr(tapi, "gdca_from_msa", never)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # a pod of two processes (no group is joined: the shape is refused
+    # before any collective)
+    monkeypatch.setattr(cli.meshlib, "init_distributed",
+                        lambda force, device: (0, 2))
     out = tmp_path / "out"
     assert cli.main([small, "-o", str(out), *args]) == 2
     assert text in capsys.readouterr().err
