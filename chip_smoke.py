@@ -51,7 +51,12 @@ prints no result line):
    / 2e-4 DI, top-100 overlap >= 95). With
    more than one card, the families run once more, one shard per card;
 6. ``top_k``: the small frob golden through ``gdca(..., top_k=100)``
-   gives the head of the full ranking of phase 4;
+   gives the head of the full ranking of phase 4; then ``recover``, the
+   method's own check at real size: ``examples/recover_contacts_torch.py``
+   plants 16 covarying pairs (copy probability 0.9, q = 21) in a frob
+   family of 32768x384 and a DI family of 1024x1000 and runs
+   ``gdca_from_msa`` at theta 0.2 in f32; every planted pair must be in
+   the top 16;
 7. the other distance kernels at the main shape, M=32768, N=384, q=21,
    each as the distance pass a caller of the weight functions picks
    (``compute_weights_streaming(..., row_stats_fn=...)`` with
@@ -93,12 +98,12 @@ prints no result line):
 
 The launch counters are zeroed right before each path of phases 4-8 and
 read after it; each path fails if a kernel of it never ran (A and B in 4,
-C and B in 5, A in 6, E, C, F and D in the four paths of 7, where
-kernel A must not run, and A, B, C as named in 8, where the pod runs C
-and B and not A, and its cached rerun nothing); family mode and the pod
-sum the two processes' counts. The line before the last is the kernel summary
-JSON; the last line is ``{"ok": true, "device": {...}}``. No CUDA
-device: exit 1, no result.
+C and B in 5, A in 6's ``top_k`` and A and B in its ``recover``, E, C,
+F and D in the four paths of 7, where kernel A must not run, and A, B,
+C as named in 8, where the pod runs C and B and not A, and its cached
+rerun nothing); family mode and the pod sum the two processes' counts.
+The line before the last is the kernel summary JSON; the last line is
+``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
 """
 
 from __future__ import annotations
@@ -963,6 +968,43 @@ def phase_top_k(golden32):
         raise AssertionError("top_k is not the head of the full ranking")
 
 
+# the planted-pair recovery (phase 6): the two real-size cells' shapes,
+# 16 planted pairs each at copy probability 0.9, q = 21, theta 0.2
+RECOVER = [("frob", 32768, 384), ("DI", 1024, 1000)]
+RECOVER_PAIRS = 16
+RECOVER_COPY_P = 0.9
+
+
+def phase_recover(device="cuda", dtype="float32"):
+    """``examples/recover_contacts_torch.py``'s planted-pair recovery at
+    each ``RECOVER`` shape on ``device``: every planted pair must be in
+    the top ``RECOVER_PAIRS`` of the ranking."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "recover_contacts_torch",
+        os.path.join(REPO, "examples", "recover_contacts_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for score, M, N in RECOVER:
+        Z, planted = example.synth_msa(M, N, n_pairs=RECOVER_PAIRS,
+                                       copy_p=RECOVER_COPY_P)
+        t0 = time.perf_counter()
+        res, top, hits = example.recover(Z, planted, score, device=device,
+                                         dtype=dtype)
+        log(f"[recover] {score} M={M} N={N} {dtype} on {device}: "
+            f"recovered {hits}/{len(planted)} planted pairs in the top "
+            f"{len(planted)} (copy_p {RECOVER_COPY_P}, theta "
+            f"{res.theta:.3f}, Meff {res.meff:.1f}, the "
+            f"{len(planted)}th score {res.ranking[len(planted) - 1][2]:.5g}"
+            f", the next {res.ranking[len(planted)][2]:.5g}); "
+            f"{time.perf_counter() - t0:.3f} s")
+        if len(planted) != RECOVER_PAIRS or hits != len(planted):
+            raise AssertionError(f"recover {score} {M}x{N}: only {hits} of "
+                                 f"{len(planted)} planted pairs recovered: "
+                                 f"top {sorted(top)}, planted {planted}")
+
+
 # the CLI batch files (phase 8): name -> (M, N, seed); frob and DI are the
 # real-size families of phase 4 (same seeds), deep is the auto-theta frob
 # cell of bench.py (M = 100,000, N = 200, q = 21), ingest a file that is
@@ -1582,6 +1624,7 @@ def main() -> int:
     if torch.cuda.device_count() > 1:
         phase_real_size(dev, make_mesh(), single)
     drive("top_k", ("row_stats",), lambda: phase_top_k(golden32))
+    drive("recover", ("row_stats", "di_pairs"), phase_recover)
 
     # the other distance kernels as the distance pass of the two weight
     # functions at the main shape, each held against kernel A's weights

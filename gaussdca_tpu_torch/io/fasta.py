@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -231,3 +231,14 @@ def remove_duplicate_sequences(msa: MSA) -> MSA:
         n_dropped_dups=dropped,
         parser=msa.parser,
     )
+
+
+def tokens_from_sequences(seqs: Sequence[str]) -> MSA:
+    """An MSA built directly from Python strings (a testing convenience):
+    each letter through the parser's state table, headers ``seq0``, ...,
+    q the largest state present."""
+    rows = [_LUT[np.frombuffer(s.encode("ascii"), dtype=np.uint8)]
+            for s in seqs]
+    tokens = np.stack(rows)
+    return MSA(tokens=tokens, headers=[f"seq{i}" for i in range(len(rows))],
+               q=int(tokens.max()))

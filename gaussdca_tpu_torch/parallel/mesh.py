@@ -33,6 +33,7 @@ collective.
 
 from __future__ import annotations
 
+import atexit
 import socket
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -394,6 +395,22 @@ def choose_backend(cards: Sequence[str]) -> str:
     return "nccl"
 
 
+def _leave_group() -> None:
+    """Leave the default process group, if one is still joined: run at
+    interpreter exit (``init_distributed`` registers it), while the
+    interpreter and torch are still whole."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _leave_at_exit() -> None:
+    # once, however often a process joins and leaves
+    atexit.unregister(_leave_group)
+    atexit.register(_leave_group)
+
+
 def init_distributed(force: bool = False,
                      device=None) -> Tuple[int, int]:
     """Join the process group of a multi-process run; returns (rank,
@@ -409,7 +426,11 @@ def init_distributed(force: bool = False,
     ``force=True`` (the CLI's ``--distributed``) lets torch raise when the
     rendezvous is not configured: running single-process would contradict
     what the user asked for. Without ``force`` an unconfigured rendezvous
-    is the single-process run, (0, 1). A group already joined is kept."""
+    is the single-process run, (0, 1). A group already joined is kept.
+    A group joined here is left at interpreter exit, if the caller has
+    not left it: a process that exits with its gloo group still joined
+    can abort in torch's teardown ("terminate called without an active
+    exception")."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -417,6 +438,7 @@ def init_distributed(force: bool = False,
     try:
         if device is None:
             dist.init_process_group(backend="gloo", init_method="env://")
+            _leave_at_exit()
             return dist.get_rank(), dist.get_world_size()
         store, rank, world = next(dist.rendezvous("env://"))
     except ValueError:
@@ -431,6 +453,7 @@ def init_distributed(force: bool = False,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend=backend, store=store, rank=rank,
                             world_size=world)
+    _leave_at_exit()
     return rank, world
 
 

@@ -13,9 +13,10 @@ src/GaussDCA.jl:88-99) and ``printrank`` (src/GaussDCA.jl:67-74):
 The sort runs on the host over the gathered score vector: it is O(P log P)
 on ~1e4-1e6 pairs, negligible next to the device stages, and the output is
 a host-side list anyway (NumPy, the same code as
-``gaussdca_tpu.score.rank``). ``top_k_device`` selects only the head of
-the ranking where S lies (``torch.topk``), so only 3k numbers reach the
-host.
+``gaussdca_tpu.score.rank``). ``top_k_ranking`` takes the head on the
+host without a full sort (``argpartition``, then a stable sort of the
+k); ``top_k_device`` selects it where S lies (``torch.topk``), so only
+3k numbers reach the host.
 """
 
 from __future__ import annotations
@@ -44,6 +45,20 @@ def compute_ranking(S: np.ndarray, min_separation: int) -> Ranking:
     scores = S[jj - 1, ii - 1]
     order = np.argsort(-scores, kind="stable")
     return [(int(ii[k]), int(jj[k]), float(scores[k])) for k in order]
+
+
+def top_k_ranking(S: np.ndarray, min_separation: int, k: int) -> Ranking:
+    """Top-k ranked pairs without a full sort (host ``argpartition``, then
+    a stable sort of the k). Ties at the k-th score resolve as
+    ``argpartition`` leaves them."""
+    S = np.asarray(S)
+    N = S.shape[0]
+    ii, jj = ranking_pairs(N, min_separation)
+    scores = S[jj - 1, ii - 1]
+    k = min(k, scores.size)
+    part = np.argpartition(-scores, k - 1)[:k]
+    order = part[np.argsort(-scores[part], kind="stable")]
+    return [(int(ii[t]), int(jj[t]), float(scores[t])) for t in order]
 
 
 def top_k_device(S: torch.Tensor, min_separation: int, k: int) -> Ranking:

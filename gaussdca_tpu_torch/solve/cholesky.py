@@ -3,8 +3,8 @@
 The reference's ``mJ = inv(cholesky(C))`` (src/GaussDCA.jl:34):
 ``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse`` (LAPACK on the
 CPU, cuSOLVER on the card), then symmetrized and returned row-major. In
-f32 one Newton step ``X <- X + X (I - C X)`` follows at full f32 (the
-pipeline runs with TF32 off), the f32 default of
+f32 one Newton step ``X <- X + X (I - C X)`` (``newton_refine``) follows
+at full f32 (the pipeline runs with TF32 off), the f32 default of
 ``gaussdca_tpu.solve.cholesky.spd_inverse``
 (``refine_iters=1``): it recovers most of what the factorization loses
 through cond(C). The JAX package's doubling triangular inverse and slab
@@ -25,6 +25,20 @@ NOT_POSITIVE_DEFINITE = (
     "PosDefException from inv(cholesky(C))")
 
 
+def newton_refine(C: torch.Tensor, X: torch.Tensor,
+                  iters: int) -> torch.Tensor:
+    """``iters`` Newton steps ``X <- X + X (I - C X)`` on an approximate
+    inverse X of C, each followed by ``X <- (X + X^T) / 2``; the products
+    run at the dtype's full precision (the pipeline keeps TF32 off)."""
+    for _ in range(iters):
+        # R = I - C X, the identity added on the diagonal in place
+        R = -(C @ X)
+        R.diagonal().add_(1.0)
+        X = X + X @ R
+        X = (X + X.T) * 0.5
+    return X
+
+
 def spd_inverse(C: torch.Tensor,
                 refine_iters: Optional[int] = None) -> torch.Tensor:
     """Inverse of a symmetric positive-definite matrix; raises
@@ -33,15 +47,17 @@ def spd_inverse(C: torch.Tensor,
     L, info = torch.linalg.cholesky_ex(C)
     if int(info) != 0:
         raise ArithmeticError(NOT_POSITIVE_DEFINITE)
-    X = torch.cholesky_inverse(L)
     if refine_iters is None:
         refine_iters = 1 if C.dtype == torch.float32 else 0
-    for _ in range(refine_iters):
-        R = -(C @ X)
-        R.diagonal().add_(1.0)
-        X = X + X @ R
-    # exactly symmetric (a + b == b + a), so its transpose is the same
-    # matrix: hand it on row-major, where X is column-major as LAPACK and
-    # cuSOLVER write it, and the consumers' row blocks need no copy
-    S = (X + X.T) * 0.5
+    if refine_iters:
+        # no reference kept here: the first step frees the factorization's
+        # inverse (an [Ns, Ns] buffer, 1.6 GB at the f32 DI cell)
+        S = newton_refine(C, torch.cholesky_inverse(L), refine_iters)
+    else:
+        X = torch.cholesky_inverse(L)
+        S = (X + X.T) * 0.5
+    # exactly symmetric (a + b == b + a; newton_refine ends on the same
+    # step), so its transpose is the same matrix: hand it on row-major,
+    # where X is column-major as LAPACK and cuSOLVER write it, and the
+    # consumers' row blocks need no copy
     return S if S.is_contiguous() else S.T.contiguous()

@@ -19,6 +19,11 @@ only O(M) state is kept. ``m_true`` is the unpadded row count when Z
 carries token-0 padding rows (the mesh path pads M to a multiple of its
 shard count): they leave the auto-theta pair count, W and Meff.
 
+``match_counts`` (kernel D on a CUDA tensor, its plain version on the
+CPU), ``mean_fraction_identity`` and ``auto_theta`` are the pairwise
+auto-theta of ``gaussdca_tpu.stats.reweight``, kept as the independent
+cross-check of the closed form: the same theta, exactly in f64.
+
 ``compute_weights`` is the dense path of ``gaussdca_tpu.stats.reweight``:
 the [M, M] identity counts from ``match_counts_fn`` (default
 ``ops.distance.match_counts``: kernel D on a CUDA tensor, its plain
@@ -62,6 +67,25 @@ def auto_theta_closed_form(Z: torch.Tensor, q: int,
     total = (tm - M * N) / 2.0
     mfi = total / (N * (M * (M - 1) / 2.0))
     return torch.minimum(torch.tensor(0.5, dtype=torch.float64),
+                         AUTO_THETA_COEFF / mfi)
+
+
+def mean_fraction_identity(D: torch.Tensor, N: int,
+                           dtype: torch.dtype = torch.float64
+                           ) -> torch.Tensor:
+    """Mean pairwise fraction-identity over the M(M-1)/2 off-diagonal
+    pairs of the identity counts D [M, M] (``match_counts``)."""
+    M = D.shape[0]
+    total = (D.sum(dtype=dtype) - M * N) / 2.0   # strict upper triangle
+    npairs = M * (M - 1) / 2.0
+    return total / (N * npairs)
+
+
+def auto_theta(D: torch.Tensor, N: int,
+               dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """theta = min(0.5, 0.1216 / meanfracid) from the identity counts."""
+    mfi = mean_fraction_identity(D, N, dtype)
+    return torch.minimum(torch.tensor(0.5, dtype=dtype, device=mfi.device),
                          AUTO_THETA_COEFF / mfi)
 
 

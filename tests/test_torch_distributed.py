@@ -1,12 +1,16 @@
-"""PyTorch port: family mode across processes (``--distributed``).
+"""PyTorch port: family mode across processes (``--distributed``), and
+the harness that launches them.
 
 Two real processes, launched by the port's ``parallel.podspawn`` with
 torchrun's environment, join a gloo group through
 ``parallel.mesh.init_distributed`` and split a batch of four small
 families round-robin on the CPU; their merge shards together hold the
-lines of a single-process merged run.
+lines of a single-process merged run. The harness hosts the rendezvous
+store before any child starts, several pods run at once, and every
+process leaves its group before its interpreter exits.
 """
 
+import concurrent.futures
 import subprocess
 import time
 
@@ -114,3 +118,65 @@ def test_spawn_pod_environment():
         [str(i), f"['x',", f"'{i}']", str(i), "3", "localhost"]
         for i in range(3)]
     assert all(o[0] == 0 for o in outs)
+
+
+_PORT_CHILD = r"""
+import os
+import socket
+
+port = int(os.environ["MASTER_PORT"])
+# before this process imports torch or binds anything
+with socket.create_connection(("localhost", port), timeout=10):
+    pass
+print("listening", port, os.environ["TORCHELASTIC_USE_AGENT_STORE"],
+      os.environ["OMP_NUM_THREADS"])
+"""
+
+
+def test_spawn_pod_store_listens_before_the_children_start():
+    """The rendezvous port is listening before any child starts: a port
+    chosen, released and bound later by rank 0 could be taken in between
+    by another process. Each child also gets the thread count asked for
+    and joins torchrun's agent store as a client."""
+    outs = podspawn.spawn_pod(_PORT_CHILD, n_processes=3, timeout=60,
+                              threads=1)
+    assert all(rc == 0 for rc, _, _ in outs), outs
+    lines = {out.strip() for _, out, _ in outs}
+    assert len(lines) == 1
+    word, port, agent, threads = lines.pop().split()
+    assert (word, agent, threads) == ("listening", "True", "1")
+    assert 0 < int(port) < 65536
+
+
+_JOIN_CHILD = r"""
+import atexit
+
+import torch
+import torch.distributed as dist
+
+# registered before the group is joined, so it runs after any exit hook
+# that joining registers
+atexit.register(lambda: print("joined at exit:", dist.is_initialized(),
+                              flush=True))
+from gaussdca_tpu_torch.parallel import mesh
+
+assert mesh.init_distributed(force=True, device="cpu") == (rank, 2)
+t = torch.tensor([rank + 1.0])
+dist.all_reduce(t)
+print("sum", float(t), flush=True)
+"""
+
+
+def test_concurrent_pods_join_and_leave_their_groups():
+    """Four pods of two processes at once, each through
+    ``init_distributed``'s rendezvous and a gloo all-reduce: every child
+    succeeds and leaves its group before its interpreter exits (a
+    process that exits with its group joined can abort in torch's
+    teardown)."""
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        runs = list(ex.map(lambda _: podspawn.spawn_pod(
+            _JOIN_CHILD, timeout=120, threads=1), range(4)))
+    for outs in runs:
+        for rc, out, err in outs:
+            assert rc == 0, err
+            assert out.split("\n")[:2] == ["sum 3.0", "joined at exit: False"]

@@ -27,14 +27,28 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gaussdca_tpu)\b",
                         re.M)
 
 
-def test_source_imports_no_jax():
-    offenders = []
+# the JAX package's examples, which the port's own do not import either
+_JAX_EXAMPLES = re.compile(
+    r"^\s*(import|from)\s+(recover_contacts|multichip)\b", re.M)
+
+
+def _port_sources():
+    """The package, ``chip_smoke.py`` and ``examples/*_torch.py``."""
     for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                if _FORBIDDEN.search(open(path).read()):
-                    offenders.append(os.path.relpath(path, REPO))
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+    examples = os.path.join(REPO, "examples")
+    yield from (os.path.join(examples, f) for f in sorted(os.listdir(examples))
+                if f.endswith("_torch.py"))
+
+
+def test_source_imports_no_jax():
+    sources = list(_port_sources())
+    assert {"chip_smoke.py", "recover_contacts_torch.py",
+            "multichip_torch.py"} <= {os.path.basename(p) for p in sources}
+    offenders = [os.path.relpath(path, REPO) for path in sources
+                 if _FORBIDDEN.search(open(path).read())
+                 or _JAX_EXAMPLES.search(open(path).read())]
     assert offenders == []
 
 

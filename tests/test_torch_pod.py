@@ -35,6 +35,9 @@ from gaussdca_tpu_torch.solve import distributed as tdist
 CPU = torch.device("cpu")
 ONE = tmesh.Mesh([CPU] * 4, (2, 2))        # the one-process 2 x 2 mesh
 ONE8 = tmesh.Mesh([CPU] * 8, (4, 2))
+# intra-op threads a child: the children compute on the CPU beside the
+# other test workers
+THREADS = 2
 
 
 def _ok(outs):
@@ -140,7 +143,7 @@ def test_collectives_across_processes_equal_one_process(tmp_path):
     exactly; the psum and the reduce-scatter within 1e-12 relative (the
     processes' partial sums add in another order); a failure on process
     0 raised on both."""
-    _ok(spawn_pod(_COLLECTIVES_CHILD, timeout=240,
+    _ok(spawn_pod(_COLLECTIVES_CHILD, timeout=240, threads=THREADS,
                   args_per_proc=lambda i: [str(tmp_path)]))
     got = [dict(np.load(tmp_path / f"p{r}.npz")) for r in range(2)]
     want = {k: v.numpy() for k, v in _h["_collectives"](ONE).items()}
@@ -190,7 +193,7 @@ def test_spd_inverse_dist_across_processes(tmp_path):
     one-process 4-shard inverse within 1e-12 and JAX's on a 4-device
     mesh within 1e-10 (f64), on both processes; with one Newton step too
     (within 1e-12 of the one-process step)."""
-    _ok(spawn_pod(_SOLVE_CHILD, timeout=240,
+    _ok(spawn_pod(_SOLVE_CHILD, timeout=240, threads=THREADS,
                   args_per_proc=lambda i: [str(tmp_path)]))
     C = _h["_spd"](43, 7)
     one = {r: tdist.from_slabs(tdist.spd_inverse_dist(
@@ -223,8 +226,9 @@ print(json.dumps({"rc": rc}))
 
 
 def _pod_cli(tmp_path, out_dirs, inputs, cache="cache"):
-    return _ok(spawn_pod(_CLI_CHILD, timeout=300, args_per_proc=lambda i: [
-        str(out_dirs[i]), str(tmp_path / cache), *inputs]))
+    return _ok(spawn_pod(
+        _CLI_CHILD, timeout=300, threads=THREADS, args_per_proc=lambda i: [
+            str(out_dirs[i]), str(tmp_path / cache), *inputs]))
 
 
 def _records(err):
@@ -328,7 +332,7 @@ def test_storage_sharded_di_pod(tmp_path, golden_dir):
     deep = _deep_family(tmp_path / "deepfam.fasta")
     small = os.path.join(golden_dir, "small.fasta.gz")
     assert 205 * 20 >= GDCAConfig().solve_min_dim
-    outs = _ok(spawn_pod(_API_CHILD, timeout=420,
+    outs = _ok(spawn_pod(_API_CHILD, timeout=420, threads=THREADS,
                          args_per_proc=lambda i: [deep, small]))
     got = [{k: {(i, j): x for i, j, x in v} for k, v in
             json.loads(out.splitlines()[-1]).items()} for _, out, _ in outs]
