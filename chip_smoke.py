@@ -41,8 +41,8 @@ prints no result line):
    1e-6), f32 with the same pair set and max abs error <= 5e-4 (small) /
    1e-3 (large); then real size: frob with auto-theta at M=32768, N=384,
    q=21 and DI with pc=0.2 at M=1024, N=1000, q=21, seeded synthetic
-   families, end to end and by stage (reweight, frequencies, solve,
-   score, rank);
+   families, end to end and by stage (the spans of a traced run,
+   ``utils.log.tracing()``: each stage's host wall and stream time);
 5. mesh: the same golden configs and real-size families through
    ``gdca(..., mesh=...)`` on four shards of cuda:0 (a 2x2 mesh); the DI
    family (Ns = 20000) takes the storage-sharded solve and the slab-local
@@ -92,9 +92,12 @@ prints no result line):
    the storage-sharded solve, the deep one the replicated solve computed
    once and broadcast), process 1 writing nothing, and again from the
    cache (``cli pod cached``); each process prints its families'
-   ``pipeline`` walls, its batch walls with the host time inside
-   ``torch.distributed`` calls, its peak device memory, and the DI
-   family's stages through ``sharded_scores`` once more.
+   ``pipeline`` walls, its batch walls, its peak device memory, and the
+   DI family through ``sharded_scores`` twice more, untraced and under
+   ``utils.log.tracing()``: both walls, the host time and bytes of the
+   ``collective`` spans (the ``torch.distributed`` calls alone) from the
+   counters, and each stage's host wall, stream time and host time
+   inside its collectives, from the spans.
 
 The launch counters are zeroed right before each path of phases 4-8 and
 read after it; each path fails if a kernel of it never ran (A and B in 4,
@@ -867,6 +870,27 @@ def _against_single(name, r, single, tol):
                              "device run")
 
 
+def stage_times(rec) -> list:
+    """The top spans of a traced RunLog (the pipeline's stages), each as
+    (name, host wall s, stream time s or None, host s inside its
+    collectives)."""
+    spans = rec.traced()["spans"]
+    out = {}
+    for k, (name, parent, t0, t1, attrs) in enumerate(spans):
+        if parent is None:
+            out[k] = [name, t1 - t0, attrs.get("device_s"), 0.0]
+        elif name == "collective":
+            top = k
+            while spans[top][1] is not None:
+                top = spans[top][1]
+            out[top][3] += t1 - t0
+    return list(out.values())
+
+
+def _ms(seconds) -> str:
+    return "n/a" if seconds is None else f"{seconds:.3f}"
+
+
 def phase_real_size(dev, mesh=None, single=None):
     """The real-size families on ``dev``, or through ``mesh`` held
     against ``single`` (the single-device results by name). Returns the
@@ -876,6 +900,7 @@ def phase_real_size(dev, mesh=None, single=None):
     from gaussdca_tpu_torch.core.config import GDCAConfig
     from gaussdca_tpu_torch.interop import msa_from_arrays
     from gaussdca_tpu_torch.parallel.sharded import pad_rows, sharded_scores
+    from gaussdca_tpu_torch.utils.log import RunLog, tracing
 
     tag = "real" if mesh is None else f"mesh real {mesh.size} shards"
     results = {}
@@ -895,29 +920,25 @@ def phase_real_size(dev, mesh=None, single=None):
                                  "pairs")
         if single is not None:
             _against_single(name, r, single[name], tol)
-        # the same pipeline again, synchronized after every stage
-        stamps = [("start", time.perf_counter())]
-
-        def mark(stage):
-            torch.cuda.synchronize()
-            stamps.append((stage, time.perf_counter()))
-
+        # the same pipeline again, traced: each stage's host wall and
+        # stream time from its span, with no synchronize between stages
+        rec = RunLog(name, enabled=False)
         torch.cuda.reset_peak_memory_stats()
-        with api.full_f32_matmuls():
+        with tracing(), rec.bound(), api.full_f32_matmuls():
             if mesh is None:
                 S, _, _ = api.scores_pipeline(
-                    torch.as_tensor(tokens, device=dev), 21, cfg, mark=mark)
+                    torch.as_tensor(tokens, device=dev), 21, cfg)
             else:
                 S, _, _ = sharded_scores(
                     mesh, pad_rows(torch.as_tensor(tokens), mesh.size), cfg,
-                    21, m_true=M, mark=mark)
-        api._checked_ranking(S, cfg.min_separation)
-        stamps.append(("rank", time.perf_counter()))
-        stages = ", ".join(f"{b[0]} {b[1] - a[1]:.3f}"
-                           for a, b in zip(stamps, stamps[1:]))
+                    21, m_true=M)
+            api._checked_ranking(S, cfg.min_separation)
+        stages = ", ".join(f"{st} {w:.3f}/{_ms(d)}"
+                           for st, w, d, _ in stage_times(rec))
         log(f"[{tag}] {name}: end to end {e2e:.3f} s (theta "
             f"{r.theta:.4f}, Meff {r.meff:.1f}, {len(r)} pairs, top "
-            f"{r[0]}); stages (s): {stages}; peak device memory "
+            f"{r[0]}); stages, host wall (s) / stream time: {stages}; "
+            "peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return results
 
@@ -1353,10 +1374,11 @@ def phase_family_mode(files: dict, out: str, ref: str) -> dict:
 
 
 _POD_CHILD = r"""
-import json, time
+import contextlib, json, time
 import torch
 from gaussdca_tpu_torch import api
 from gaussdca_tpu_torch.cli import main
+from gaussdca_tpu_torch.utils.log import RunLog, tracing
 from gaussdca_tpu_torch.ops import di_kernel, distance
 from gaussdca_tpu_torch.parallel import mesh as meshlib
 
@@ -1369,25 +1391,6 @@ counters = {k: getattr(m, k) for k, m in (
 meshlib.init_distributed(force=True, device="cuda")
 walls = []
 real = api.gdca_from_msa
-# host time inside the torch.distributed calls (gloo returns when done;
-# the staging copies through the host are outside)
-comm = [0.0]
-
-
-def in_comm(fn):
-    def call(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **k)
-        finally:
-            comm[0] += time.perf_counter() - t0
-    return call
-
-
-for name in ("all_gather", "all_reduce", "broadcast", "reduce",
-             "all_to_all_single", "broadcast_object_list"):
-    setattr(torch.distributed, name, in_comm(getattr(torch.distributed,
-                                                     name)))
 
 
 def timed(msa, cfg, **kw):
@@ -1406,16 +1409,18 @@ for argv_k in runs:
     for fn in counters.values():
         fn.launches = 0
     walls.clear()
-    comm[0] = 0.0
     t0 = time.perf_counter()
     rc = main(argv_k)
     res.append({"rc": rc, "wall": time.perf_counter() - t0,
-                "pipeline": list(walls), "collective_s": comm[0],
+                "pipeline": list(walls),
                 "launches": {k: fn.launches for k, fn in counters.items()}})
 peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-# the DI family's stages once more, through sharded_scores, each ended
-# by a device sync: (wall, of it inside torch.distributed calls)
+# the DI family once more through sharded_scores, untraced and then
+# traced: the two walls (tracing's cost on the pod), each stage's host
+# wall, stream time and host time inside its collectives, and the
+# record's collective counters
+from chip_smoke import stage_times
 from gaussdca_tpu_torch.core.config import GDCAConfig
 from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
 from gaussdca_tpu_torch.io import fasta
@@ -1424,22 +1429,19 @@ from gaussdca_tpu_torch.parallel.sharded import pad_rows, sharded_scores
 msa = fasta.read_fasta_alignment(di_file, 0.9)
 mesh = meshlib.make_pod_mesh((2, 2), "cuda")
 cfg = GDCAConfig(score="DI", pseudocount=0.2, theta=0.2, device="cuda")
-stages, last = {}, [time.perf_counter(), 0.0]
-comm[0] = 0.0
-
-
-def mark(stage):
-    torch.cuda.synchronize()
-    now = time.perf_counter()
-    stages[stage] = [now - last[0], comm[0] - last[1]]
-    last[:] = [now, comm[0]]
-
-
-with full_f32_matmuls():
-    sharded_scores(mesh, pad_rows(torch.as_tensor(msa.tokens), mesh.size),
-                   cfg, msa.q, m_true=msa.M, mark=mark)
+Z = pad_rows(torch.as_tensor(msa.tokens), mesh.size)
+rec = RunLog("di", enabled=False)
+di_walls = []
+for ctx in (contextlib.nullcontext(), tracing()):
+    t0 = time.perf_counter()
+    with ctx, rec.bound(), full_f32_matmuls():
+        S, _, _ = sharded_scores(mesh, Z, cfg, msa.q, m_true=msa.M)
+        S.cpu()
+    di_walls.append(time.perf_counter() - t0)
 print(json.dumps({"runs": res, "backend": torch.distributed.get_backend(),
-                  "peak_gib": peak, "di_stages": stages}))
+                  "peak_gib": peak, "di_walls": di_walls,
+                  "di_counters": rec.counters,
+                  "di_stages": stage_times(rec)}))
 """
 
 
@@ -1527,8 +1529,7 @@ def phase_pod(files: dict, tmp: str, ref: str) -> tuple:
         for k, (name, run) in enumerate(zip(
                 ("frob", "DI", "frob cached", "DI cached"), r["runs"])):
             log(f"[cli pod p{i}] {name}: rc {run['rc']}, batch "
-                f"{run['wall']:.3f} s (host clock around cli.main; in "
-                f"torch.distributed calls {run['collective_s']:.3f} s); "
+                f"{run['wall']:.3f} s (host clock around cli.main); "
                 "pipeline walls (s): " + ", ".join(
                     f"{fam} {t:.3f}" for fam, t in run["pipeline"])
                 + f"; launches {run['launches']}")
@@ -1538,10 +1539,16 @@ def phase_pod(files: dict, tmp: str, ref: str) -> tuple:
             into = first if k < 2 else again
             for kern, n in run["launches"].items():
                 into[kern] = into.get(kern, 0) + n
-        log(f"[cli pod p{i}] DI 1024x1000 stages through sharded_scores, "
-            "wall / in torch.distributed calls (s): " + ", ".join(
-                f"{st} {w:.3f} / {c:.3f}"
-                for st, (w, c) in r["di_stages"].items()))
+        cnt = r["di_counters"]
+        log(f"[cli pod p{i}] DI 1024x1000 through sharded_scores: "
+            f"{r['di_walls'][0]:.3f} s untraced, {r['di_walls'][1]:.3f} s "
+            f"traced, of it {cnt['collective_s']:.3f} s in collective spans "
+            f"({cnt['collective_bytes'] / 1e6:.1f} MB sent, "
+            f"{cnt['collective_bytes'] / 1e9 / cnt['collective_s']:.2f} "
+            "GB/s); stages, host wall / stream time / host in collective "
+            "spans (s): " +
+            ", ".join(f"{st} {w:.3f} / {_ms(d)} / {c:.3f}"
+                      for st, w, d, c in r["di_stages"]))
         if r["backend"] != "gloo":
             raise AssertionError("two processes on one card must take gloo")
     log(f"[cli pod] 2 processes on cuda:0: {wall:.1f} s wall (process start "

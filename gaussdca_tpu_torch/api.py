@@ -14,13 +14,13 @@ sharded over a grid of devices (``parallel/sharded.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from gaussdca_tpu_torch.core.config import GDCAConfig
-from gaussdca_tpu_torch.core.runtime import full_f32_matmuls, no_mark
+from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
 from gaussdca_tpu_torch.io import fasta
 from gaussdca_tpu_torch.parallel.mesh import Mesh, make_mesh, make_pod_mesh
 from gaussdca_tpu_torch.score.apc import correct_apc
@@ -33,6 +33,7 @@ from gaussdca_tpu_torch.stats import reweight
 from gaussdca_tpu_torch.stats.frequencies import (frequency_chunk,
                                                    weighted_frequencies)
 from gaussdca_tpu_torch.stats.pseudocount import add_pseudocount, compute_C
+from gaussdca_tpu_torch.utils.log import dtype_name, span
 
 MAX_Q = 31  # the reference's 5-bit packing limit (src/GaussDCA.jl:26)
 
@@ -60,34 +61,38 @@ class GDCAResult:
         return self.ranking[k]
 
 
-def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig, *,
-                    mark: Callable[[str], None] = no_mark):
+def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig):
     """Device pipeline: tokens Z [M, N] (on the run's device) -> the
     APC-corrected score matrix S [N, N], the resolved theta and Meff.
-    ``mark(stage)`` is called after each of "reweight", "frequencies",
-    "solve" and "score" (a hook for stage timing)."""
+    Each stage is a span (``utils.log``): "reweight", "frequencies",
+    "covariance", "solve", "score" and "apc"."""
     dtype = cfg.resolve_dtype()
+    dt = dtype_name(dtype)
+    dev = Z.device
     M, N = Z.shape
     theta = "auto" if cfg.auto_theta else float(cfg.theta)
-    W, _, th = reweight.compute_weights_streaming(Z, theta, q, dtype=dtype)
-    mark("reweight")
-    Pi_t, Pij_t, meff = weighted_frequencies(
-        Z, W, q, dtype=dtype, m_chunk=frequency_chunk(M, N, q, dtype))
-    Pi, Pij = add_pseudocount(Pi_t, Pij_t, cfg.pseudocount, q)
-    # drop each (N s)^2 buffer as soon as it is consumed: at N s = 20000
-    # every one is 1.6 GB in f32
-    del Pi_t, Pij_t
-    C = compute_C(Pi, Pij)
-    del Pi, Pij
-    mark("frequencies")
-    mJ = spd_inverse(C)
-    mark("solve")
-    if cfg.score == "DI":
-        S = di_score(mJ, C, q)
-    else:
-        S = frob_score(mJ, q)
-    S = correct_apc(S)
-    mark("score")
+    with span("reweight", dev, M=M, N=N, q=q):
+        W, _, th = reweight.compute_weights_streaming(Z, theta, q,
+                                                      dtype=dtype)
+    with span("frequencies", dev, M=M, N=N, q=q, dtype=dt):
+        Pi_t, Pij_t, meff = weighted_frequencies(
+            Z, W, q, dtype=dtype, m_chunk=frequency_chunk(M, N, q, dtype))
+    with span("covariance", dev):
+        Pi, Pij = add_pseudocount(Pi_t, Pij_t, cfg.pseudocount, q)
+        # drop each (N s)^2 buffer as soon as it is consumed: at N s = 20000
+        # every one is 1.6 GB in f32
+        del Pi_t, Pij_t
+        C = compute_C(Pi, Pij)
+        del Pi, Pij
+    with span("solve", dev, Ns=C.shape[0], dtype=dt):
+        mJ = spd_inverse(C)
+    with span("score", dev, score=cfg.score, N=N, q=q, dtype=dt):
+        if cfg.score == "DI":
+            S = di_score(mJ, C, q)
+        else:
+            S = frob_score(mJ, q)
+    with span("apc", dev):
+        S = correct_apc(S)
     return S, th, meff
 
 
@@ -99,9 +104,14 @@ def _checked_ranking(S: torch.Tensor, min_separation: int,
     score through APC; a partial NaN sorts last on the host and first in
     ``torch.topk``, so the two endpoint scores suffice."""
     if top_k is not None:
-        R = top_k_device(S, min_separation, top_k)
+        with span("topk", S.device):
+            R = top_k_device(S, min_separation, top_k)
     else:
-        R = compute_ranking(S.cpu().numpy(), min_separation)
+        with span("download", S.device):
+            S = S.cpu().numpy()
+        with span("rank") as sp:
+            R = compute_ranking(S, min_separation)
+            sp.set(pairs=len(R))
     if R and not (np.isfinite(R[0][2]) and np.isfinite(R[-1][2])):
         raise ArithmeticError(NOT_POSITIVE_DEFINITE)
     return R
@@ -175,7 +185,9 @@ def gdca_from_msa(msa: fasta.MSA, cfg: GDCAConfig,
         with full_f32_matmuls():
             S, th, meff = sharded_scores(mesh, Z, cfg, q, m_true=msa.M)
     else:
-        Z = torch.as_tensor(msa.tokens, device=cfg.resolve_device())
+        dev = cfg.resolve_device()
+        with span("upload", dev):
+            Z = torch.as_tensor(msa.tokens, device=dev)
         with full_f32_matmuls():
             S, th, meff = scores_pipeline(Z, q, cfg)
     R = _checked_ranking(S, cfg.min_separation, top_k)

@@ -16,7 +16,11 @@ pipeline, emit).
   computes. The native parser leaves the interpreter lock during its
   ctypes call, so the parse overlaps the device work.
 - ``--profile-dir`` wraps the batch in ``torch.profiler`` (CPU and CUDA
-  activity) and writes a Chrome trace there.
+  activity) and writes a Chrome trace there. While a profiler records
+  (this one or the caller's), the program's spans (``utils.log``) are
+  ``gdca.*`` ranges in the trace, and each record carries its ``spans``
+  and ``counters``; the batch's closing record carries those outside
+  any family.
 - ``--distributed`` deals the families round-robin to the processes of a
   ``torch.distributed`` job (torchrun's ``env://`` rendezvous), each
   scoring its own families on its own device; with ``--merge-output``
@@ -62,7 +66,7 @@ from gaussdca_tpu_torch.parallel.mesh import Mesh
 from gaussdca_tpu_torch.score import di
 from gaussdca_tpu_torch.score.rank import format_rank
 from gaussdca_tpu_torch.utils.flops import pipeline_flops
-from gaussdca_tpu_torch.utils.log import RunLog
+from gaussdca_tpu_torch.utils.log import RunLog, span
 
 _NO_EFFECT = ("accepted for the JAX CLI's command lines; no effect: eager "
               "PyTorch compiles nothing per shape, and results are the "
@@ -225,12 +229,14 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
                cache_key: Optional[str] = None,
                mesh: Optional[Mesh] = None, emit: bool = True,
                cache_read: bool = True, cache_only: bool = False,
-               emit_errors_fatal: bool = True) -> Optional[str]:
+               emit_errors_fatal: bool = True,
+               parse_log: Optional[RunLog] = None) -> Optional[str]:
     """Process one family; returns the output path (None when nothing
     was written).
 
     ``msa_future``: optional concurrent.futures.Future holding the
-    prefetched ingest result (or raising its parse error).
+    prefetched ingest result (or raising its parse error), and
+    ``parse_log`` the RunLog its thread recorded the parse's spans in.
     ``cache_key``: precomputed ``_cache_key`` (the batch loop computes it
     for prefetch decisions; avoids hashing the file twice).
 
@@ -247,9 +253,30 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
     ``cache_only=True``: the pod agreed this family is a cache hit (every
     peer skipped it): serve the artifact or record its absence, never
     compute, since entering the program alone would wedge the pod.
+
+    The whole family is the ``family`` span of its record, emitted after
+    it closes.
     """
     if stem is None:
         stem = _stem(path)
+    log = RunLog(stem, enabled=not quiet)
+    with log.bound(), span("family"):
+        out_path, record = _family(
+            log, path, cfg, out_dir, top_k, cache_dir, msa_future, stem,
+            cache_key, mesh, emit, cache_read, cache_only,
+            emit_errors_fatal, parse_log)
+    if record:
+        log.emit()
+    return out_path
+
+
+def _family(log: RunLog, path: str, cfg: GDCAConfig, out_dir: str,
+            top_k: Optional[int], cache_dir: Optional[str], msa_future,
+            stem: str, cache_key: Optional[str], mesh: Optional[Mesh],
+            emit: bool, cache_read: bool, cache_only: bool,
+            emit_errors_fatal: bool, parse_log: Optional[RunLog]):
+    """``run_family``'s work: (the output path or None, whether the
+    family's record is emitted)."""
     out_path = os.path.join(out_dir, stem + ".rank.txt")
     if emit:
         try:
@@ -259,11 +286,10 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
                 raise
             # recorded by the emit stage below, which tries again
     device = str(mesh.home if mesh is not None else cfg.resolve_device())
-    log = RunLog(stem, enabled=not quiet)
 
-    def write_failed(err: str) -> None:
+    def write_failed(err: str):
         log.set(emit_error=err)
-        log.emit()
+        return None, True
 
     cached = None
     if cache_dir and emit:
@@ -282,29 +308,28 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
             except OSError as e:
                 if emit_errors_fatal:
                     raise
-                write_failed(f"{type(e).__name__}: {e}")
-                return None
+                return write_failed(f"{type(e).__name__}: {e}")
             log.set(cached=True, output=out_path, device=device)
-            log.emit()
-            return out_path
+            return out_path, True
     if cache_only:
         # an agreed hit whose artifact is gone: serving needs no
         # collective, so this is the writer's own failure
         err = f"pod-agreed cache artifact missing: {cached}"
         if emit_errors_fatal:
             raise RuntimeError(err)
-        write_failed(err)
-        return None
+        return write_failed(err)
 
     with log.stage("ingest"):
         if msa_future is not None:
             msa = msa_future.result()
         else:
             msa = fasta.read_fasta_alignment(path, cfg.max_gap_fraction)
+    if parse_log is not None:
+        log.absorb(parse_log, thread="prefetch")
     with log.stage("pipeline"):
         result = api.gdca_from_msa(msa, cfg, top_k=top_k, mesh=mesh)
     if not emit:
-        return None
+        return None, False
     R = result.ranking
     try:
         with log.stage("emit"):
@@ -321,8 +346,7 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
     except OSError as e:
         if emit_errors_fatal:
             raise
-        write_failed(f"{type(e).__name__}: {e}")
-        return None
+        return write_failed(f"{type(e).__name__}: {e}")
 
     fl = pipeline_flops(result.M, result.N, result.q, score=cfg.score,
                         auto_theta=cfg.auto_theta, dtype=cfg.resolve_dtype(),
@@ -338,8 +362,7 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
             tflop_per_s=round(fl["total"] / 1e12 / pipe_s, 2)
             if pipe_s > 0 else None,
             device=device, parser=msa.parser)
-    log.emit()
-    return out_path
+    return out_path, True
 
 
 _TRANSIENT_MARKERS = ("RESOURCE_EXHAUSTED", "INTERNAL", "UNAVAILABLE",
@@ -399,15 +422,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     # runs the same sharded program over one mesh spanning them all
     pod = bool(args.distributed and mesh_spec is not None)
     owns_group = args.distributed and not torch.distributed.is_initialized()
+    blog = RunLog("batch", enabled=False)   # the spans outside families
     try:
-        return _batch(args, cfg, dev, mesh_spec, pod)
+        with blog.bound():
+            return _batch(args, cfg, dev, mesh_spec, pod, blog)
     finally:
         if owns_group and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
 
+def _prefetch(path: str, max_gap_fraction: float, parse_log: RunLog):
+    """The parse on the prefetch thread, its spans into ``parse_log``."""
+    with parse_log.bound():
+        return fasta.read_fasta_alignment(path, max_gap_fraction)
+
+
 def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
-           pod: bool) -> int:
+           pod: bool, blog: RunLog) -> int:
     # stems are assigned over the FULL batch (collision disambiguation
     # has to agree across --distributed processes sharing an output dir)
     inputs = list(args.inputs)
@@ -541,15 +572,20 @@ def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
                     return
             except OSError:
                 pass
-        futures[k] = pool.submit(fasta.read_fasta_alignment, inputs[k],
-                                 cfg.max_gap_fraction)
+        parse_logs[k] = RunLog(stems[k], enabled=False)
+        futures[k] = pool.submit(_prefetch, inputs[k], cfg.max_gap_fraction,
+                                 parse_logs[k])
 
+    # the batch's span, closed before the profiler stops
+    batch_span = span("batch", families=len(inputs))
+    batch_span.__enter__()
     try:
         if merge_path and merge_fh is None:
             os.makedirs(os.path.dirname(os.path.abspath(merge_path)),
                         exist_ok=True)
             merge_fh = open(merge_path, "w")
         futures = [None] * len(inputs)
+        parse_logs: List[Optional[RunLog]] = [None] * len(inputs)
         submit(0, futures)
         for k, path in enumerate(inputs):
             submit(k + 1, futures)
@@ -565,7 +601,8 @@ def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
                 try:
                     out_path = run_family(
                         path, cfg, args.output_dir, args.top_k,
-                        args.cache_dir, quiet, msa_future=futures[k], **kw)
+                        args.cache_dir, quiet, msa_future=futures[k],
+                        parse_log=parse_logs[k], **kw)
                 except Exception as e:
                     if lockstep or not _retryable(e):
                         raise  # deterministic errors: fail fast
@@ -613,6 +650,7 @@ def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
                                   "error": str(e)[:500]}),
                       file=sys.stderr, flush=True)
     finally:
+        batch_span.__exit__(None, None, None)
         if merge_fh is not None:
             merge_fh.close()
         if pool is not None:
@@ -627,7 +665,7 @@ def _batch(args, cfg: GDCAConfig, dev: torch.device, mesh_spec,
         print(json.dumps({
             "batch": len(inputs), "errors": n_err,
             "total_s": round(time.perf_counter() - t0, 3),
-        }), file=sys.stderr, flush=True)
+            **blog.traced()}), file=sys.stderr, flush=True)
     return 1 if n_err else 0
 
 

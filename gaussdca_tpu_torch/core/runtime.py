@@ -22,6 +22,3 @@ def full_f32_matmuls():
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
 
-
-def no_mark(stage: str) -> None:
-    """The default stage hook of the pipelines: does nothing."""

@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from gaussdca_tpu_torch.io import native
+from gaussdca_tpu_torch.utils.log import span
 
 GAP_STATE = 21
 
@@ -163,11 +164,19 @@ def read_fasta_alignment(path: str, max_gap_fraction: float, *,
     the output is sequence-major [M, N]. ``use_native``: None takes the
     native parser when it builds, else NumPy; True takes the native parser
     and raises RuntimeError (with g++'s output) when it does not build;
-    False takes NumPy. ``MSA.parser`` says which ran.
+    False takes NumPy. ``MSA.parser`` says which ran. The read is the
+    ``parse`` span (``utils.log``).
     """
     if not os.path.isfile(path):
         raise ValueError(f"cannot open file {path}")
+    with span("parse", bytes=os.path.getsize(path)) as sp:
+        msa = _parse(path, max_gap_fraction, use_native)
+        sp.set(parser=msa.parser, M=msa.M, N=msa.N)
+    return msa
 
+
+def _parse(path: str, max_gap_fraction: float,
+           use_native: Optional[bool]) -> MSA:
     if use_native is None:
         use_native = native.available()
     if use_native:

@@ -26,6 +26,14 @@ fresh tensors. In one process ``Tensor.to`` onto the tensor's own device
 returns the tensor itself, so a "broadcast" slab may alias its owner's:
 callers never update one in place.
 
+Each exchange of data is a ``collective`` span (``utils.log``) with its
+``op`` and the ``bytes`` this process sends, and adds its host seconds
+and bytes to the record's counters ``collective_s`` and
+``collective_bytes``: in one process the copies between the shards'
+devices, in a pod the ``torch.distributed`` call alone. The staging
+copies to and from ``comm_device`` stay outside it: on gloo they wait
+for the device's queue, which is compute, not communication.
+
 Family mode (``--distributed`` without ``--mesh``) joins a gloo group and
 deals each process its families (``shard_families``); it runs no
 collective.
@@ -34,10 +42,14 @@ collective.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import pickle
 import socket
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from gaussdca_tpu_torch.utils import log
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -202,18 +214,37 @@ def _pod(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.world > 1
 
 
+def _nbytes(parts: Sequence[torch.Tensor]) -> int:
+    return sum(p.numel() * p.element_size() for p in parts)
+
+
+@contextlib.contextmanager
+def _collective(op: str, nbytes: int, on: bool = True):
+    """The ``collective`` span of one exchange (none where ``on`` is
+    false), and its counters."""
+    if not (on and log.tracing_on()):
+        yield
+        return
+    with log.span("collective", op=op, bytes=nbytes) as sp:
+        yield
+    log.count(collective_s=sp.t1 - sp.t0, collective_bytes=nbytes)
+
+
 def psum(parts: Sequence[torch.Tensor], device: torch.device,
          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sum of the per-shard tensors of every process, on ``device``. A
     fresh tensor: the parts are never updated."""
-    out = parts[0].to(device, copy=True)
-    for p in parts[1:]:
-        out += p.to(device)
-    if _pod(mesh):
+    pod = _pod(mesh)
+    with _collective("psum", _nbytes(parts), on=not pod):
+        out = parts[0].to(device, copy=True)
+        for p in parts[1:]:
+            out += p.to(device)
+    if pod:
         import torch.distributed as dist
 
         buf = out.to(mesh.comm_device)
-        dist.all_reduce(buf)
+        with _collective("psum", _nbytes([buf])):
+            dist.all_reduce(buf)
         out = buf.to(device)
     return out
 
@@ -225,14 +256,16 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device,
     processes each process's rows are padded to the longest and cut
     back after the exchange."""
     if not _pod(mesh):
-        return torch.cat([p.to(device) for p in parts])
+        with _collective("all_gather", _nbytes(parts)):
+            return torch.cat([p.to(device) for p in parts])
     import torch.distributed as dist
 
     comm = mesh.comm_device
     local = torch.cat([p.to(comm) for p in parts])
     n = torch.tensor([local.shape[0]], dtype=torch.int64, device=comm)
     ns = [torch.empty_like(n) for _ in range(mesh.world)]
-    dist.all_gather(ns, n)
+    with _collective("all_gather", _nbytes([n])):
+        dist.all_gather(ns, n)
     ns = [int(x) for x in ns]
     top = max(ns)
     if local.shape[0] < top:
@@ -240,7 +273,8 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device,
             (top - local.shape[0], *local.shape[1:]))])
     bufs = [local.new_empty((top, *local.shape[1:]))
             for _ in range(mesh.world)]
-    dist.all_gather(bufs, local)
+    with _collective("all_gather", _nbytes([local])):
+        dist.all_gather(bufs, local)
     return torch.cat([b[:k] for b, k in zip(bufs, ns)]).to(device)
 
 
@@ -267,7 +301,9 @@ def broadcast(x: Optional[torch.Tensor], src: int, mesh: Mesh,
         buf = x.to(comm).contiguous()
     else:
         buf = torch.empty(shape, dtype=dtype, device=comm)
-    dist.broadcast(buf, src=mesh.owner(src))
+    with _collective("broadcast",
+                     _nbytes([buf]) if mesh.is_local(src) else 0):
+        dist.broadcast(buf, src=mesh.owner(src))
     return buf.to(mesh.home)
 
 
@@ -280,7 +316,8 @@ def reduce(x: torch.Tensor, dst: int, mesh: Mesh) -> Optional[torch.Tensor]:
     import torch.distributed as dist
 
     buf = x.to(mesh.comm_device, copy=True)
-    dist.reduce(buf, dst=mesh.owner(dst))
+    with _collective("reduce", _nbytes([buf])):
+        dist.reduce(buf, dst=mesh.owner(dst))
     return buf.to(mesh.home) if mesh.is_local(dst) else None
 
 
@@ -307,15 +344,18 @@ def all_to_all(send: Sequence[Sequence[torch.Tensor]],
     may differ in shape; one dtype. A pod exchanges the shapes first,
     then every piece in one ``all_to_all_single``."""
     if not _pod(mesh):
-        return [[send[src][d].to(dev) for src in range(mesh.size)]
-                for d, dev in zip(mesh.shards, mesh.flat)]
+        with _collective("all_to_all", _nbytes([p for row in send
+                                                for p in row])):
+            return [[send[src][d].to(dev) for src in range(mesh.size)]
+                    for d, dev in zip(mesh.shards, mesh.flat)]
     import torch.distributed as dist
 
     comm, n, world = mesh.comm_device, mesh.n_local, mesh.world
     mine = torch.tensor([list(p.shape) for row in send for p in row],
                         dtype=torch.int64, device=comm)    # [n * size, 2]
     tables = [torch.empty_like(mine) for _ in range(world)]
-    dist.all_gather(tables, mine)
+    with _collective("all_gather", _nbytes([mine])):
+        dist.all_gather(tables, mine)
     shapes = torch.cat(tables).reshape(mesh.size, mesh.size, 2).tolist()
     flat_in, in_splits = [], []
     for q in range(world):
@@ -328,7 +368,8 @@ def all_to_all(send: Sequence[Sequence[torch.Tensor]],
                       for src in range(q * n, (q + 1) * n)
                       for d in mesh.shards) for q in range(world)]
     out = inp.new_empty(sum(out_splits))
-    dist.all_to_all_single(out, inp, out_splits, in_splits)
+    with _collective("all_to_all", _nbytes([inp])):
+        dist.all_to_all_single(out, inp, out_splits, in_splits)
     recv = [[None] * mesh.size for _ in range(n)]
     k = 0
     for src in range(mesh.size):          # sender-major, as packed above
@@ -371,7 +412,10 @@ def broadcast_object(mesh: Optional[Mesh], obj, src: int = 0):
     import torch.distributed as dist
 
     box = [obj]
-    dist.broadcast_object_list(box, src=src, device=mesh.comm_device)
+    nbytes = len(pickle.dumps(obj)) \
+        if mesh.rank == src and log.tracing_on() else 0
+    with _collective("broadcast_object", nbytes):
+        dist.broadcast_object_list(box, src=src, device=mesh.comm_device)
     return box[0]
 
 

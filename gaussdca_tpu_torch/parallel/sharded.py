@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from gaussdca_tpu_torch.core.config import GDCAConfig
-from gaussdca_tpu_torch.core.runtime import full_f32_matmuls, no_mark
+from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
 from gaussdca_tpu_torch.ops import di_kernel, distance
 from gaussdca_tpu_torch.parallel.mesh import Mesh, all_gather, \
     all_to_all, on_first, psum, reduce_scatter, replicate
@@ -54,6 +54,7 @@ from gaussdca_tpu_torch.stats import reweight
 from gaussdca_tpu_torch.stats.frequencies import (accumulate_frequencies,
                                                    frequency_chunk)
 from gaussdca_tpu_torch.stats.pseudocount import add_pseudocount, compute_C
+from gaussdca_tpu_torch.utils.log import dtype_name, span
 
 Bounds = List[Tuple[int, int]]
 
@@ -174,15 +175,16 @@ def _di_local(mesh: Mesh, J: List[torch.Tensor], Ls: List[torch.Tensor],
 
 
 def sharded_scores(mesh: Mesh, Z: torch.Tensor, cfg: GDCAConfig, q: int,
-                   m_true: Optional[int] = None, *,
-                   mark: Callable[[str], None] = no_mark):
+                   m_true: Optional[int] = None):
     """Tokens Z [M, N] (M a multiple of the shard count; rows at or past
     ``m_true`` are token-0 padding; the whole matrix on every process) ->
     (S [N, N] APC-corrected on the mesh's home device, resolved theta,
     Meff), the same on every process. ``cfg.device`` is not read: the
-    mesh's devices are where it runs. ``mark(stage)`` is called after
-    "reweight", "frequencies", "solve" and "score"."""
+    mesh's devices are where it runs. The stages are the spans of
+    ``api.scores_pipeline``, after "upload"; their device times are those
+    of the home device."""
     dtype = cfg.resolve_dtype()
+    dt = dtype_name(dtype)
     devs, home, ndev = mesh.flat, mesh.home, mesh.size
     M, N = Z.shape
     if M % ndev:
@@ -191,14 +193,15 @@ def sharded_scores(mesh: Mesh, Z: torch.Tensor, cfg: GDCAConfig, q: int,
     m_loc = M // ndev
     s = q - 1
     Ns = N * s
-    Z_on = {dev: Z.to(dev) for dev in mesh.distinct}
+    with span("upload", home):
+        Z_on = {dev: Z.to(dev) for dev in mesh.distinct}
 
     # --- reweighting: shard rows vs all rows, O(M) statistics -----------
     theta = "auto" if cfg.auto_theta else float(cfg.theta)
-    W, Meff, th = reweight.compute_weights_streaming(
-        Z_on[home], theta, q, dtype=dtype, m_true=m_true,
-        row_stats_fn=_row_stats_sharded(mesh, Z_on, m_loc))
-    mark("reweight")
+    with span("reweight", home, M=M, N=N, q=q):
+        W, Meff, th = reweight.compute_weights_streaming(
+            Z_on[home], theta, q, dtype=dtype, m_true=m_true,
+            row_stats_fn=_row_stats_sharded(mesh, Z_on, m_loc))
 
     # --- frequencies: per-shard partials, summed into row slabs ---------
     # every process sums its shards' partials into one slab per global
@@ -207,71 +210,75 @@ def sharded_scores(mesh: Mesh, Z: torch.Tensor, cfg: GDCAConfig, q: int,
     npad, w, _ = plan_padding(Ns, ndev, min(cfg.solve_block, Ns))
     rows = _even_bounds(Ns, ndev, w)
     m_chunk = frequency_chunk(m_loc, N, q, dtype)
-    pis = []
-    Pij = [torch.zeros((r1 - r0, Ns), dtype=dtype,
-                       device=devs[d - mesh.shards.start]
-                       if mesh.is_local(d) else home)
-           for d, (r0, r1) in enumerate(rows)]
-    for src, dev in zip(mesh.shards, devs):
-        loc = slice(src * m_loc, (src + 1) * m_loc)
-        p_pi, p_pij = accumulate_frequencies(
-            Z_on[dev][loc], W[loc].to(dev), q, dtype=dtype, m_chunk=m_chunk)
-        pis.append(p_pi)
-        for (r0, r1), slab in zip(rows, Pij):
-            slab += p_pij[r0:r1].to(slab.device)
-        del p_pij   # each partial is a full [Ns, Ns]: drop it once summed
-    Pij = reduce_scatter(Pij, mesh)
-    Pi_t = psum(pis, home, mesh) / Meff
-    C = []
-    for k, (d, dev) in enumerate(zip(mesh.shards, devs)):
-        r0 = rows[d][0]
-        Pi, slab = add_pseudocount(Pi_t, Pij[k] / Meff.to(dev),
-                                   cfg.pseudocount, q, row0=r0)
-        Pij[k] = None
-        C.append(compute_C(Pi, slab, row0=r0))
-        del slab
-    Lsite = None
-    if cfg.score == "DI":
-        # site Cholesky factors [N, s, s]: tiny, replicated
-        Lsite = torch.linalg.cholesky(all_gather(
-            [_site_blocks(c, rows[d][0], s)
-             for c, d in zip(C, mesh.shards)], home, mesh).reshape(N, s, s))
-    mark("frequencies")
+    with span("frequencies", home, M=M, N=N, q=q, dtype=dt):
+        pis = []
+        Pij = [torch.zeros((r1 - r0, Ns), dtype=dtype,
+                           device=devs[d - mesh.shards.start]
+                           if mesh.is_local(d) else home)
+               for d, (r0, r1) in enumerate(rows)]
+        for src, dev in zip(mesh.shards, devs):
+            loc = slice(src * m_loc, (src + 1) * m_loc)
+            p_pi, p_pij = accumulate_frequencies(
+                Z_on[dev][loc], W[loc].to(dev), q, dtype=dtype,
+                m_chunk=m_chunk)
+            pis.append(p_pi)
+            for (r0, r1), slab in zip(rows, Pij):
+                slab += p_pij[r0:r1].to(slab.device)
+            del p_pij   # each partial is a full [Ns, Ns]: drop it once summed
+        Pij = reduce_scatter(Pij, mesh)
+        Pi_t = psum(pis, home, mesh) / Meff
+    with span("covariance", home):
+        C = []
+        for k, (d, dev) in enumerate(zip(mesh.shards, devs)):
+            r0 = rows[d][0]
+            Pi, slab = add_pseudocount(Pi_t, Pij[k] / Meff.to(dev),
+                                       cfg.pseudocount, q, row0=r0)
+            Pij[k] = None
+            C.append(compute_C(Pi, slab, row0=r0))
+            del slab
+        Lsite = None
+        if cfg.score == "DI":
+            # site Cholesky factors [N, s, s]: tiny, replicated
+            Lsite = torch.linalg.cholesky(all_gather(
+                [_site_blocks(c, rows[d][0], s)
+                 for c, d in zip(C, mesh.shards)], home, mesh).reshape(
+                     N, s, s))
 
     # --- solve: replicated below the threshold, storage-sharded above ---
     sites = _even_bounds(N, ndev, -(-N // ndev))
     site_rows = [(a * s, b * s) for a, b in sites]
     storage_sharded = Ns >= cfg.solve_min_dim
-    if storage_sharded:
-        for k, d in enumerate(mesh.shards):
-            C[k] = pad_slab(C[k], d, w, npad)
-        X = spd_inverse_dist(C, mesh, block=min(cfg.solve_block, Ns))
-        del C
-        J = _reslab(X, w, site_rows, mesh, Ns)
-        del X
-    else:
-        full = all_gather(C, home, mesh)
-        del C
-        # inverted once (on process 0 of a pod) and broadcast: every
-        # process holds the same bits of mJ
-        mJ = on_first(mesh, lambda: spd_inverse(full), full.shape,
-                      full.dtype)
-        del full
-        J_on = replicate(mJ, mesh)
-        J = [J_on[k][site_rows[d][0]:site_rows[d][1]]
-             for k, d in enumerate(mesh.shards)]
-    mark("solve")
+    with span("solve", home, Ns=Ns, dtype=dt):
+        if storage_sharded:
+            for k, d in enumerate(mesh.shards):
+                C[k] = pad_slab(C[k], d, w, npad)
+            X = spd_inverse_dist(C, mesh, block=min(cfg.solve_block, Ns))
+            del C
+            J = _reslab(X, w, site_rows, mesh, Ns)
+            del X
+        else:
+            full = all_gather(C, home, mesh)
+            del C
+            # inverted once (on process 0 of a pod) and broadcast: every
+            # process holds the same bits of mJ
+            mJ = on_first(mesh, lambda: spd_inverse(full), full.shape,
+                          full.dtype)
+            del full
+            J_on = replicate(mJ, mesh)
+            J = [J_on[k][site_rows[d][0]:site_rows[d][1]]
+                 for k, d in enumerate(mesh.shards)]
 
     # --- scores: gathered, so S is replicated on every process ----------
-    if cfg.score == "DI":
-        Ls = replicate(Lsite.contiguous(), mesh)
-        S = (_di_local(mesh, J, Ls, N) if storage_sharded
-             else _di_replicated(mesh, J_on, Ls, N))
-    else:
-        S = all_gather([frob_rows(j, q) for j in J], home, mesh)
-        S = S * (1.0 - torch.eye(N, dtype=S.dtype, device=home))
-    S = correct_apc(S)
-    mark("score")
+    with span("score", home, score=cfg.score, N=N, q=q, dtype=dt):
+        if cfg.score == "DI":
+            Ls = replicate(Lsite.contiguous(), mesh)
+            S = (_di_local(mesh, J, Ls, N) if storage_sharded
+                 else _di_replicated(mesh, J_on, Ls, N))
+        else:
+            S = all_gather([frob_rows(j, q) for j in J], home, mesh)
+            S = S * (1.0 - torch.eye(N, dtype=S.dtype, device=home))
+    with span("apc", home):
+        S = correct_apc(S)
     return S, th, Meff
 
 

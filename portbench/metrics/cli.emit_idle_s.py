@@ -1,0 +1,9 @@
+"""Mean device-idle seconds inside each family's ``emit`` span (format,
+file and cache writes), from the program's spans on the trace's clock
+(traced runs only)."""
+
+from portbench.program_spans import mean, program
+
+
+def read(run):
+    return mean(program(run).family_idle("emit"))

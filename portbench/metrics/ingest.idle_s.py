@@ -1,0 +1,9 @@
+"""Mean device-idle seconds inside each family's ``ingest`` span (the
+batch loop's wait on the parse), from the program's spans on the
+trace's clock (traced runs only)."""
+
+from portbench.program_spans import mean, program
+
+
+def read(run):
+    return mean(program(run).family_idle("ingest"))
