@@ -9,7 +9,13 @@ prints no result line):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the TF32 flags as the pipeline sets them;
 2. build: the six CUDA kernels from ``gaussdca_tpu_torch/csrc`` with
-   nvcc, one compiler process each, all started together;
+   nvcc, one compiler process each, all started together; then the
+   ranking sorted on the card: ``compute_ranking`` of a CUDA tensor equal
+   to that of the same S as an ndarray (the host sort), order and sign
+   bits included, on tied scores and on zeros of both signs at N = 7,
+   50, 300 and 1000 (the card's small and large sorts) in f32 and f64,
+   a NaN refused, and both timed at the cells' widths (host wall,
+   median of 5);
 3. kernels vs their plain PyTorch versions on the card: row statistics
    (kernel A, exact equality) at four shapes of tokens 1..31, each at
    q = 9, 21 and 31 (tokens above q match nothing); rectangular row
@@ -195,6 +201,79 @@ INT8_OPS_S = 1979e12
 F32_FLOPS_S = 67e12
 # the popcount pipe: 16 a clock on each of 132 SMs at 1.98 GHz
 POPC_WORDS_S = 16 * 132 * 1.98e9
+
+
+# the ranking's check widths (the card's small and large sorts) and the
+# benchmark cells' widths for its timing
+RANK_N = (7, 50, 300, 1000)
+RANK_TIMED = (1000, 384, 200)
+
+
+def _rank_scores(kind: str, N: int, rng) -> np.ndarray:
+    """``ties``: five values; ``zeros``: zeros of both signs among a few
+    +-1; ``random``: no ties."""
+    if kind == "ties":
+        return rng.integers(-2, 3, size=(N, N)) / 2.0
+    if kind == "zeros":
+        S = np.where(rng.random((N, N)) < 0.5, -0.0, 0.0)
+        S[rng.random((N, N)) < 0.1] = 1.0
+        S[rng.random((N, N)) < 0.1] = -1.0
+        return S
+    return rng.random((N, N))
+
+
+def phase_rank(dev):
+    """``compute_ranking`` of a tensor on the card against the host sort
+    of the same S; then the two timed."""
+    import math
+
+    import torch
+    from gaussdca_tpu_torch import api
+    from gaussdca_tpu_torch.score.rank import compute_ranking
+
+    def signed(R):
+        return [(i, j, x, math.copysign(1.0, x)) for i, j, x in R]
+
+    rng = np.random.default_rng(15)
+    for N in RANK_N:
+        for kind in ("ties", "zeros", "random"):
+            for dt in (np.float32, np.float64):
+                S = _rank_scores(kind, N, rng).astype(dt)
+                for m in (0, 5):
+                    got = compute_ranking(torch.as_tensor(S, device=dev), m)
+                    if signed(got) != signed(compute_ranking(S, m)):
+                        raise AssertionError(
+                            f"rank: N={N} {kind} {dt.__name__} m={m}: the "
+                            "card's ranking differs from the host sort's")
+    S = torch.rand(300, 300, device=dev)
+    S[200, 3] = float("nan")
+    try:
+        api._checked_ranking(S, 5)
+    except ArithmeticError:
+        pass
+    else:
+        raise AssertionError("rank: a NaN score was ranked")
+    log(f"[rank] card == host sort (order, sign bits) at N = {RANK_N}, "
+        "ties, zeros of both signs, random, f32 and f64; a NaN refused")
+
+    def wall(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    for N in RANK_TIMED:
+        S = _rank_scores("random", N, rng).astype(np.float32)
+        T = torch.as_tensor(S, device=dev)
+        card = wall(lambda: compute_ranking(T, 5))
+        host = wall(lambda: compute_ranking(T.cpu().numpy(), 5))
+        log(f"[rank] N={N}, {(N - 5) * (N - 4) // 2} pairs, f32: on the card "
+            f"{card:.4f} s, copy and host sort {host:.4f} s (host wall, "
+            "median of 5)")
 
 
 def bound(nbytes: float, ops: float, rate: float):
@@ -1594,6 +1673,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
+    phase_rank(dev)
     kernels = phase_kernels(dev) + phase_dense_kernels(dev)
     counters = {"row_stats": distance.row_stats,
                 "row_stats_rect": distance.row_stats_rect,

@@ -3,12 +3,13 @@
 ``gdca(filename, **kwargs)`` mirrors ``gaussdca_tpu.gdca`` (the reference
 ``gDCA``): FASTA -> (dedup) -> reweighting -> weighted frequencies ->
 pseudocount -> covariance -> Cholesky inverse -> FN or DI scores -> APC ->
-min-separation ranking. The host does ingest, dedup and the final sort;
-everything in between runs on ``cfg.device`` as eager PyTorch around the
-two hand-written kernels (``ops.distance.row_stats``,
-``ops.di_kernel.di_pairs``); ``top_k`` selects the head of the ranking
-on the device. With ``mesh=`` the same pipeline runs
-sharded over a grid of devices (``parallel/sharded.py``).
+min-separation ranking. The host does ingest and dedup; everything
+after runs on ``cfg.device`` as eager PyTorch around the two
+hand-written kernels (``ops.distance.row_stats``,
+``ops.di_kernel.di_pairs``), the ranking's sort included (only the
+sorted columns reach the host, which builds the list); ``top_k``
+selects the head of the ranking on the device. With ``mesh=`` the same
+pipeline runs sharded over a grid of devices (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -98,20 +99,25 @@ def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig):
 
 def _checked_ranking(S: torch.Tensor, min_separation: int,
                      top_k: Optional[int] = None) -> Ranking:
-    """Rank S, refusing to emit a solver-poisoned (non-finite) ranking
-    (the reference fails with PosDefException there). ``top_k``: only the
-    k best pairs, selected where S lies. A NaN anywhere reaches every
-    score through APC; a partial NaN sorts last on the host and first in
-    ``torch.topk``, so the two endpoint scores suffice."""
+    """Rank S where it lies, refusing to emit a solver-poisoned
+    (non-finite) ranking (the reference fails with PosDefException there).
+    ``top_k``: only the k best pairs. A NaN anywhere reaches every score
+    through APC; a partial NaN sorts first in ``torch.sort`` and
+    ``torch.topk`` (last in the host sort of an ndarray), so the two
+    endpoint scores suffice. The ``wait`` span holds the host's wait for
+    the queued pipeline (nothing else synchronizes), so ``rank`` holds
+    the ranking alone; its ``sorted_on`` is the device type of the
+    sort."""
     if top_k is not None:
         with span("topk", S.device):
             R = top_k_device(S, min_separation, top_k)
     else:
-        with span("download", S.device):
-            S = S.cpu().numpy()
-        with span("rank") as sp:
+        with span("wait"):
+            if S.device.type == "cuda":
+                torch.cuda.current_stream(S.device).synchronize()
+        with span("rank", S.device) as sp:
             R = compute_ranking(S, min_separation)
-            sp.set(pairs=len(R))
+            sp.set(pairs=len(R), sorted_on=S.device.type)
     if R and not (np.isfinite(R[0][2]) and np.isfinite(R[-1][2])):
         raise ArithmeticError(NOT_POSITIVE_DEFINITE)
     return R

@@ -10,10 +10,13 @@ src/GaussDCA.jl:88-99) and ``printrank`` (src/GaussDCA.jl:67-74):
 - emitted as ``"%i %i %e"`` lines (the format is load-bearing: golden files
   are compared token-by-token).
 
-The sort runs on the host over the gathered score vector: it is O(P log P)
-on ~1e4-1e6 pairs, negligible next to the device stages, and the output is
-a host-side list anyway (NumPy, the same code as
-``gaussdca_tpu.score.rank``). ``top_k_ranking`` takes the head on the
+The sort runs where S lies. For a tensor, ``compute_ranking`` gathers
+the ranked scores on S's device, sorts them there (one stable
+``torch.sort``), and copies back only the sorted scores and their pair
+indices. For an ndarray, it sorts on the host (a stable NumPy
+``argsort``, as in ``gaussdca_tpu.score.rank``). Either way the list is
+built from whole columns (``tolist``), and both give the same order:
+ties stay in generation order. ``top_k_ranking`` takes the head on the
 host without a full sort (``argpartition``, then a stable sort of the
 k); ``top_k_device`` selects it where S lies (``torch.topk``), so only
 3k numbers reach the host.
@@ -36,15 +39,32 @@ def ranking_pairs(N: int, min_separation: int) -> Tuple[np.ndarray, np.ndarray]:
     return iu + 1, ju + 1
 
 
-def compute_ranking(S: np.ndarray, min_separation: int) -> Ranking:
-    """Ranked (i, j, score) triples, descending score; 1-based indices."""
+def _columns(ii, jj, scores) -> Ranking:
+    """(i, j, score) tuples from three equal-length columns."""
+    return list(zip(ii.tolist(), jj.tolist(), scores.tolist()))
+
+
+def compute_ranking(S: Union[np.ndarray, torch.Tensor],
+                    min_separation: int) -> Ranking:
+    """Ranked (i, j, score) triples, descending score; 1-based indices.
+    A tensor S is gathered and sorted on its own device; an ndarray on
+    the host. Ties keep generation order on both paths."""
+    if isinstance(S, torch.Tensor):
+        N = S.shape[0]
+        ij = torch.triu_indices(N, N, offset=min_separation,
+                                device=S.device)
+        # the lower triangle S[j, i], as on the host below
+        scores, order = torch.sort(S[ij[1], ij[0]], descending=True,
+                                   stable=True)
+        ij = (ij[:, order] + 1).cpu()
+        return _columns(ij[0], ij[1], scores.cpu())
     S = np.asarray(S)
     N = S.shape[0]
     ii, jj = ranking_pairs(N, min_separation)
     # Reference reads the lower triangle S[j, i] (src/GaussDCA.jl:94).
     scores = S[jj - 1, ii - 1]
     order = np.argsort(-scores, kind="stable")
-    return [(int(ii[k]), int(jj[k]), float(scores[k])) for k in order]
+    return _columns(ii[order], jj[order], scores[order])
 
 
 def top_k_ranking(S: np.ndarray, min_separation: int, k: int) -> Ranking:
@@ -58,7 +78,7 @@ def top_k_ranking(S: np.ndarray, min_separation: int, k: int) -> Ranking:
     k = min(k, scores.size)
     part = np.argpartition(-scores, k - 1)[:k]
     order = part[np.argsort(-scores[part], kind="stable")]
-    return [(int(ii[t]), int(jj[t]), float(scores[t])) for t in order]
+    return _columns(ii[order], jj[order], scores[order])
 
 
 def top_k_device(S: torch.Tensor, min_separation: int, k: int) -> Ranking:
@@ -78,10 +98,7 @@ def top_k_device(S: torch.Tensor, min_separation: int, k: int) -> Ranking:
     cols = torch.arange(N, device=S.device)[None, :]
     flat = torch.where(cols >= rows + m, S.T, float("-inf")).reshape(-1)
     vals, idx = torch.topk(flat, k)
-    ii = (idx // N + 1).cpu().numpy()
-    jj = (idx % N + 1).cpu().numpy()
-    v = vals.cpu().numpy()
-    return [(int(a), int(b), float(x)) for a, b, x in zip(ii, jj, v)]
+    return _columns((idx // N + 1).cpu(), (idx % N + 1).cpu(), vals.cpu())
 
 
 def format_rank(R: Ranking) -> str:

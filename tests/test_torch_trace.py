@@ -36,7 +36,7 @@ RECORD_KEYS = {"family", "M", "N", "q", "dropped_gaps", "dropped_dups",
                "tflop", "tflop_per_s", "timings_s", "total_s", "device",
                "parser"}
 PIPELINE = ["upload", "reweight", "frequencies", "covariance", "solve",
-            "score", "apc", "download", "rank"]
+            "score", "apc", "wait", "rank"]
 
 
 @pytest.fixture
@@ -103,6 +103,7 @@ def test_record_spans_under_an_outer_profiler(small, tmp_path):
                                      "dtype": "float64"}
         assert spans["score"][4]["score"] == "DI"
         assert spans["rank"][4]["pairs"] == rec["pairs"]
+        assert spans["rank"][4]["sorted_on"] == "cpu"
         # the stage walls are the spans' own
         for st in ("ingest", "pipeline", "emit"):
             s = spans[st]
@@ -190,6 +191,8 @@ def test_mesh_run_has_the_stages_and_collectives(small, tmp_path):
     assert rc == 0
     rec, = [r for r in recs if "family" in r]
     assert tree(rec)["pipeline"] == PIPELINE
+    rank = [s for s in rec["spans"] if s[0] == "rank"]
+    assert [s[4]["sorted_on"] for s in rank] == ["cpu"]
     coll = [s for s in rec["spans"] if s[0] == "collective"]
     assert coll
     ops = {s[4]["op"] for s in coll}
