@@ -8,7 +8,8 @@ timed path over it (the same command line as the window's calls), and
 the check's numbers against the reference: the program's readings. For
 each seed of ``--control-seeds``: the control, the reference computed in
 TF32 (``reference.gdca``'s "tf32"), put in the program's place: its
-rankings written as the program writes them and judged the same way.
+rankings written as the program writes them (only the head of ``top_k``
+pairs where the mix asks for one) and judged the same way.
 One JSON line a reading; the limits file plays no part except for
 ``top_k`` heads.
 """
@@ -28,10 +29,10 @@ def _seeds(text: str):
     return list(range(int(lo), int(hi or lo) + 1))
 
 
-def write_ranking(path: str, S, min_separation: int) -> None:
+def write_ranking(path: str, S, min_separation: int, top_k=None) -> None:
     from portbench.reference import reference_ranking
 
-    i, j, s = reference_ranking(S, min_separation)
+    i, j, s = (a[:top_k] for a in reference_ranking(S, min_separation))
     with open(path, "w") as fh:
         fh.write("".join(f"{a} {b} {x:e}\n" for a, b, x in zip(i, j, s)))
 
@@ -62,7 +63,7 @@ def readings(root: str, name: str, seeds, control_seeds, device: str,
                     os.makedirs(out)
                     low = harness.references(cell, pool, device, "tf32")
                     for path, S in zip(harness.output_paths(out, pool), low):
-                        write_ranking(path, S, m)
+                        write_ranking(path, S, m, top_k)
                 t1 = time.perf_counter()
                 refs = harness.references(cell, pool, device)
                 t2 = time.perf_counter()

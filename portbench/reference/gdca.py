@@ -10,7 +10,9 @@ its Gaussian direct information), correct by the average product and rank
 the pairs at least ``min_separation`` apart.
 
 Everything is computed in blocks of rows so that an alignment of 100,000
-sequences fits, on whichever torch device is given. ``precision`` is
+sequences fits, on whichever torch device is given, and the covariance
+and its inverse in two buffers of Ns^2 (Ns = N (q - 1)), so that a
+family of Ns = 60,000 fits one 80 GB card in float64. ``precision`` is
 "float64" (the reference), "float32", or "tf32": float32 whose matrix
 products round their operands to TF32's 10-bit mantissa, as the tensor
 cores do when TF32 is allowed (the rounding is done here, so the same
@@ -102,6 +104,11 @@ class _Arith:
     def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.round(a) @ self.round(b)
 
+    def addmm_(self, out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               alpha: float = 1.0) -> torch.Tensor:
+        """out += alpha a b, in place."""
+        return out.addmm_(self.round(a), self.round(b), alpha=alpha)
+
     def ein(self, eq: str, *ops: torch.Tensor) -> torch.Tensor:
         return torch.einsum(eq, *(self.round(o) for o in ops))
 
@@ -124,6 +131,13 @@ def _one_hot(Z: torch.Tensor, states: int, dtype) -> torch.Tensor:
     state c (1 <= c <= states)."""
     c = torch.arange(1, states + 1, device=Z.device, dtype=Z.dtype)
     return (Z[:, :, None] == c).reshape(Z.shape[0], -1).to(dtype)
+
+
+# the block of the Cholesky inverse: at Ns = 60,000 its 59 blocks make
+# some 1,800 products of each of the three kinds, each wide enough (1024
+# in its short dimensions) to run cuBLAS near the card's float64 rate,
+# while a panel of Ns x 1024 float64 is 0.49 GB beside 28.8 GB for Ns^2
+_INV_BLOCK = 1024
 
 
 def _block(rows: int, width: int, budget: int = 1 << 27) -> int:
@@ -164,28 +178,86 @@ def sequence_weights(Z: torch.Tensor, q: int, theta, ar: _Arith
 
 def covariance(Z: torch.Tensor, W: torch.Tensor, q: int, pc: float,
                ar: _Arith) -> Tuple[torch.Tensor, float]:
-    """(C [N s, N s], Meff) over the reduced alphabet 1..s, s = q - 1."""
+    """(C [N s, N s], Meff) over the reduced alphabet 1..s, s = q - 1,
+    built in one buffer of Ns^2 and a one-hot block of rows."""
     M, N = Z.shape
     s = q - 1
     Ns = N * s
     meff = W.sum()
     pi = torch.zeros(Ns, dtype=ar.dtype, device=Z.device)
-    pij = torch.zeros((Ns, Ns), dtype=ar.dtype, device=Z.device)
+    C = torch.zeros((Ns, Ns), dtype=ar.dtype, device=Z.device)
     step = _block(M, Ns, 1 << 26)
     for r0 in range(0, M, step):
         Eb = _one_hot(Z[r0:r0 + step], s, ar.dtype)
         wb = W[r0:r0 + step]
         pi += ar.mm(wb[None, :], Eb)[0]
-        pij += ar.mm((Eb * wb[:, None]).T, Eb)
+        ar.addmm_(C, (Eb * wb[:, None]).T, Eb)
         del Eb
     Pi = (1 - pc) * (pi / meff) + pc / q
-    Pij = (1 - pc) * (pij / meff) + pc / q ** 2
-    del pij
+    C.div_(meff).mul_(1 - pc).add_(pc / q ** 2)
     # within one site the pseudocount goes on the diagonal only
-    Pij.view(N, s, N, s).diagonal(dim1=0, dim2=2).sub_(pc / q ** 2)
-    Pij.diagonal().add_(pc / q)
-    Pij -= torch.outer(Pi, Pi)
-    return Pij, float(meff)
+    C.view(N, s, N, s).diagonal(dim1=0, dim2=2).sub_(pc / q ** 2)
+    C.diagonal().add_(pc / q)
+    C.addr_(Pi, Pi, alpha=-1)
+    return C, float(meff)
+
+
+def spd_inverse_(C: torch.Tensor, ar: _Arith) -> torch.Tensor:
+    """C^-1 of a symmetric positive definite C as inv(cholesky(C)) (as
+    GaussDCA.jl computes it): C is factored into L and L into L^-1 in
+    place, block by block, and mJ = L^-T L^-1 is formed in one second
+    buffer, each block written once and mirrored, so it is exactly
+    symmetric. C is overwritten. Besides the two Ns^2 buffers only blocks
+    of O(_INV_BLOCK Ns) are made, and every product goes through ``ar``.
+    Blocks above the diagonal of C are never read."""
+    n = C.shape[0]
+    blocks = [(k, min(n, k + _INV_BLOCK)) for k in range(0, n, _INV_BLOCK)]
+    # right-looking Cholesky: C = L L^T, L in the lower triangle
+    for k0, k1 in blocks:
+        Lkk = torch.linalg.cholesky(C[k0:k1, k0:k1])
+        C[k0:k1, k0:k1] = Lkk
+        if k1 == n:
+            break
+        # the panel P solves P Lkk^T = C[k1:, k]
+        P = torch.linalg.solve_triangular(Lkk.T, C[k1:, k0:k1], upper=True,
+                                          left=False)
+        C[k1:, k0:k1] = P
+        for r0, r1 in blocks:
+            if r0 >= k1:
+                ar.addmm_(C[r0:r1, k1:r1], P[r0 - k1:r1 - k1],
+                          P[:r1 - k1].T, alpha=-1)
+        del P
+    # X = L^-1 in place, from the last block column back: with X already
+    # in place right of column block j, X[j1:, j] = -X[j1:, j1:] L[j1:, j]
+    # L[j, j]^-1 (LAPACK's trtri)
+    for j0, j1 in reversed(blocks):
+        eye = torch.eye(j1 - j0, dtype=C.dtype, device=C.device)
+        Xjj = torch.linalg.solve_triangular(C[j0:j1, j0:j1], eye,
+                                            upper=False)
+        if j1 < n:
+            Y = torch.empty((n - j1, j1 - j0), dtype=C.dtype,
+                            device=C.device)
+            for r0, r1 in blocks:
+                if r0 >= j1:
+                    # X is lower triangular: row block r ends at column r1
+                    Y[r0 - j1:r1 - j1] = ar.mm(C[r0:r1, j1:r1],
+                                               C[j1:r1, j0:j1])
+            C[j1:, j0:j1] = ar.mm(Y, Xjj).neg_()
+            del Y
+        C[j0:j1, j0:j1] = Xjj
+    # mJ[i, c] = X[i0:, i]^T X[i0:, c] for c <= i (X[k, i] = 0 for k < i0)
+    mJ = torch.empty_like(C)
+    for i0, i1 in blocks:
+        for c0, c1 in blocks:
+            if c0 > i0:
+                break
+            B = ar.mm(C[i0:, i0:i1].T, C[i0:, c0:c1])
+            if c0 == i0:
+                mJ[i0:i1, i0:i1] = (B + B.T) * 0.5
+            else:
+                mJ[i0:i1, c0:c1] = B
+                mJ[c0:c1, i0:i1] = B.T
+    return mJ
 
 
 def frob_scores(mJ: torch.Tensor, N: int, s: int) -> torch.Tensor:
@@ -202,13 +274,13 @@ def frob_scores(mJ: torch.Tensor, N: int, s: int) -> torch.Tensor:
     return S
 
 
-def di_scores(mJ: torch.Tensor, C: torch.Tensor, N: int, s: int,
+def di_scores(mJ: torch.Tensor, Cd: torch.Tensor, N: int, s: int,
               ar: _Arith) -> torch.Tensor:
-    """Gaussian direct information per pair: with C_ii = L_i L_i^T and
-    rho = L_i^T J_ij L_j, DI = 1/2 sum_k log((1 + sqrt(1 + 4 l_k)) / 2)
-    over the eigenvalues l_k of rho rho^T."""
-    idx = torch.arange(N, device=C.device)
-    L = torch.linalg.cholesky(C.view(N, s, N, s)[idx, :, idx, :])
+    """Gaussian direct information per pair from the diagonal blocks Cd
+    [N, s, s] of C: with C_ii = L_i L_i^T and rho = L_i^T J_ij L_j, DI =
+    1/2 sum_k log((1 + sqrt(1 + 4 l_k)) / 2) over the eigenvalues l_k of
+    rho rho^T."""
+    L = torch.linalg.cholesky(Cd)
     J4 = mJ.view(N, s, N, s)
     S = torch.zeros((N, N), dtype=mJ.dtype, device=mJ.device)
     step = _block(N, N * s * s, 1 << 23)
@@ -255,15 +327,19 @@ def reference_scores(path: str, settings: Dict, *, device="cpu",
         W, theta = sequence_weights(Z, q, settings["theta"], ar)
         C, meff = covariance(Z, W, q, float(settings["pseudocount"]), ar)
         del Z, W
-        mJ = torch.linalg.inv(C)
-        mJ = (mJ + mJ.T) / 2
+        # the diagonal blocks the DI score needs, copied before C is
+        # overwritten by its inverse's factors
+        idx = torch.arange(N, device=C.device)
+        Cd = C.view(N, s, N, s)[idx, :, idx, :]
+        mJ = spd_inverse_(C, ar)
+        del C
         if settings["score"] == "DI":
-            S = di_scores(mJ, C, N, s, ar)
+            S = di_scores(mJ, Cd, N, s, ar)
         elif settings["score"] == "frob":
             S = frob_scores(mJ, N, s)
         else:
             raise ValueError(f"score {settings['score']!r}")
-        del mJ, C
+        del mJ
         S = apc(S).to(torch.float64).cpu().numpy()
     return S, {"M": M, "N": N, "q": q, "theta": theta, "meff": meff}
 

@@ -93,3 +93,34 @@ def test_control_fails_the_limit(bench_copy, cell):
                            bench_copy + "/portbench").limits["score_err"]
     errs = np.array([g["score_err"] for g in got])
     assert len(errs) == 3 and np.all(errs > limit), (errs, limit)
+
+
+def test_control_writes_the_head_of_a_top_k_cell(bench_copy):
+    """In a cell of ``top_k`` heads the control writes its head of k
+    pairs, as the program does, so that its numbers measure its scores
+    and not a ranking of the wrong length."""
+    import json
+    import os
+    import shutil
+
+    bench_dir = os.path.join(bench_copy, "portbench")
+    mix = json.load(open(os.path.join(bench_dir, "traffic", "tiny.json")))
+    mix["cli"]["top_k"] = 10
+    with open(os.path.join(bench_dir, "traffic", "tiny-top10.json"),
+              "w") as fh:
+        json.dump(mix, fh)
+    shutil.copy(os.path.join(bench_dir, "limits", "di-wide-top100.json"),
+                os.path.join(bench_dir, "limits", "tiny-di-top10.json"))
+    with open(os.path.join(bench_copy, "BENCHMARK.json")) as fh:
+        bench = json.load(fh)
+    bench["workloads"].append({"name": "tiny-di-top10", "config": "gdca-di",
+                               "traffic": "tiny-top10", "chips": 1,
+                               "why": "CPU tests"})
+    with open(os.path.join(bench_copy, "BENCHMARK.json"), "w") as fh:
+        json.dump(bench, fh)
+    got = list(readings(bench_copy, "tiny-di-top10", [], [31, 32], "cpu",
+                        bench_dir))
+    assert len(got) == 2
+    # a full ranking in place of the head would be off by every pair
+    # beyond the tenth (over 1,700 a family here)
+    assert all(g["pairs_off"] < 10 and g["score_err"] > 0 for g in got), got

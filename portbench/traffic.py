@@ -59,7 +59,8 @@ def write_fasta_gz(path: str, tokens: np.ndarray, level: int = 6) -> None:
     text = b"".join(b">s%d\n%s\n" % (i, rows[i].tobytes())
                     for i in range(rows.shape[0]))
     with open(path, "wb") as fh:
-        fh.write(gzip.compress(text, compresslevel=level))
+        # no time stamp in the header, so a seed writes the same bytes
+        fh.write(gzip.compress(text, compresslevel=level, mtime=0))
 
 
 def _draw(spec: Dict, rng: np.random.Generator, n: int) -> np.ndarray:
