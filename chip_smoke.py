@@ -15,7 +15,12 @@ prints no result line):
    bits included, on tied scores and on zeros of both signs at N = 7,
    50, 300 and 1000 (the card's small and large sorts) in f32 and f64,
    a NaN refused, and both timed at the cells' widths (host wall,
-   median of 5);
+   median of 5); then the one-device solve (``phase_solve``):
+   ``spd_inverse`` against the solve it replaced (cuSOLVER's potrf and
+   potrs on an identity, one Newton step) at Ns = 7,680 and 20,000, and
+   alone at 60,000, each timed with CUDA events beside its peak memory,
+   and each inverse row-major, exactly symmetric and within 1e-3 of C^-1
+   on a probe vector;
 3. kernels vs their plain PyTorch versions on the card: row statistics
    (kernel A, exact equality) at four shapes of tokens 1..31, each at
    q = 9, 21 and 31 (tokens above q match nothing); rectangular row
@@ -274,6 +279,76 @@ def phase_rank(dev):
         log(f"[rank] N={N}, {(N - 5) * (N - 4) // 2} pairs, f32: on the card "
             f"{card:.4f} s, copy and host sort {host:.4f} s (host wall, "
             "median of 5)")
+
+
+# the one-device solve's widths: frob-mid's and the DI cells' Ns, then the
+# N = 3000 DI family's, timed on the new solve alone
+SOLVE_NS = (7680, 20000)
+SOLVE_ALONE_NS = (60000,)
+
+
+def _spd_matrix(n: int, dev, seed: int):
+    """A seeded f32 SPD matrix, G G^T / k + I / 2 with G [n, k], k = 4096:
+    no n^3 product to make it and no second n x n buffer."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((n, 4096), generator=gen, device=dev)
+    C = torch.mm(G, G.T).div_(4096)
+    C.diagonal().add_(0.5)
+    return C
+
+
+def phase_solve(dev):
+    """The one-device solve: ``spd_inverse`` (no Newton step) against the
+    solve it replaced (cuSOLVER's potrf and potrs on an identity, then one
+    Newton step through ``newton_refine``) at ``SOLVE_NS``, each timed
+    with CUDA events (median of 3) with its peak memory beside C; then
+    ``spd_inverse`` alone at ``SOLVE_ALONE_NS``. Fails on a strided or
+    asymmetric inverse, or on one that misses C^-1 (C v) = v by more than
+    1e-3 of v."""
+    import torch
+    from gaussdca_tpu_torch.core.runtime import full_f32_matmuls
+    from gaussdca_tpu_torch.solve.cholesky import newton_refine, spd_inverse
+
+    def replaced(C):
+        S = newton_refine(C, torch.cholesky_inverse(
+            torch.linalg.cholesky(C)), 1)
+        return S if S.is_contiguous() else S.T.contiguous()
+
+    def measure(name, fn, C, reps):
+        n = C.shape[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        X = fn(C)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if not X.is_contiguous() or not torch.equal(X, X.T):
+            raise AssertionError(f"solve: {name} at Ns={n} gave a strided "
+                                 "or asymmetric inverse")
+        v = torch.randn(n, 1, device=dev, dtype=C.dtype)
+        err = float((X @ (C @ v) - v).abs().max() / v.abs().max())
+        if err > 1e-3:
+            raise AssertionError(f"solve: {name} at Ns={n}: C^-1 (C v) "
+                                 f"misses v by {err:.3e}")
+        del X
+        ms = cuda_ms(lambda: fn(C), reps)
+        log(f"[solve] Ns={n} {name}: {ms:.2f} ms (CUDA events, median of "
+            f"{reps}), {n ** 3 / ms / 1e9:.2f} TFLOP/s of Ns^3; peak beside "
+            f"C {peak / 2 ** 30:.3f} GiB ({peak / (4 * n * n):.2f} Ns^2 "
+            f"buffers); C^-1 (C v) - v {err:.2e} of v")
+        torch.cuda.empty_cache()
+
+    with full_f32_matmuls():
+        for n in SOLVE_NS + SOLVE_ALONE_NS:
+            C = _spd_matrix(n, dev, seed=n)
+            if n in SOLVE_NS:
+                measure("replaced: potrf, potrs, 1 Newton step", replaced,
+                        C, 3)
+            measure("spd_inverse", spd_inverse, C, 3)
+            del C
+            torch.cuda.empty_cache()
 
 
 def bound(nbytes: float, ops: float, rate: float):
@@ -1674,6 +1749,7 @@ def main() -> int:
     phase_device()
     phase_build()
     phase_rank(dev)
+    phase_solve(dev)
     kernels = phase_kernels(dev) + phase_dense_kernels(dev)
     counters = {"row_stats": distance.row_stats,
                 "row_stats_rect": distance.row_stats_rect,

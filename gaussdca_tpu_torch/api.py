@@ -29,7 +29,8 @@ from gaussdca_tpu_torch.score.di import di_score
 from gaussdca_tpu_torch.score.frob import frob_score
 from gaussdca_tpu_torch.score.rank import (Ranking, compute_ranking,
                                            printrank, top_k_device)
-from gaussdca_tpu_torch.solve.cholesky import NOT_POSITIVE_DEFINITE, spd_inverse
+from gaussdca_tpu_torch.solve.cholesky import (NOT_POSITIVE_DEFINITE,
+                                              solve_steps, spd_inverse)
 from gaussdca_tpu_torch.stats import reweight
 from gaussdca_tpu_torch.stats.frequencies import (frequency_chunk,
                                                    weighted_frequencies)
@@ -85,7 +86,8 @@ def scores_pipeline(Z: torch.Tensor, q: int, cfg: GDCAConfig):
         del Pi_t, Pij_t
         C = compute_C(Pi, Pij)
         del Pi, Pij
-    with span("solve", dev, Ns=C.shape[0], dtype=dt):
+    Ns = C.shape[0]
+    with span("solve", dev, Ns=Ns, dtype=dt, **solve_steps(Ns)):
         mJ = spd_inverse(C)
     with span("score", dev, score=cfg.score, N=N, q=q, dtype=dt):
         if cfg.score == "DI":

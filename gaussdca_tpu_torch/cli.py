@@ -350,8 +350,7 @@ def _family(log: RunLog, path: str, cfg: GDCAConfig, out_dir: str,
 
     fl = pipeline_flops(result.M, result.N, result.q, score=cfg.score,
                         auto_theta=cfg.auto_theta, dtype=cfg.resolve_dtype(),
-                        shards=mesh.size if mesh is not None else None,
-                        solve_min_dim=cfg.solve_min_dim)
+                        shards=mesh.size if mesh is not None else None)
     pipe_s = log.timings["pipeline"]
     log.set(M=result.M, N=result.N, q=result.q,
             dropped_gaps=result.n_dropped_gaps,

@@ -47,7 +47,7 @@ from gaussdca_tpu_torch.parallel.mesh import Mesh, all_gather, \
 from gaussdca_tpu_torch.score.apc import correct_apc
 from gaussdca_tpu_torch.score.di import ns_iters
 from gaussdca_tpu_torch.score.frob import frob_rows
-from gaussdca_tpu_torch.solve.cholesky import spd_inverse
+from gaussdca_tpu_torch.solve.cholesky import solve_steps, spd_inverse
 from gaussdca_tpu_torch.solve.distributed import pad_slab, plan_padding, \
     spd_inverse_dist
 from gaussdca_tpu_torch.stats import reweight
@@ -248,7 +248,7 @@ def sharded_scores(mesh: Mesh, Z: torch.Tensor, cfg: GDCAConfig, q: int,
     sites = _even_bounds(N, ndev, -(-N // ndev))
     site_rows = [(a * s, b * s) for a, b in sites]
     storage_sharded = Ns >= cfg.solve_min_dim
-    with span("solve", home, Ns=Ns, dtype=dt):
+    with span("solve", home, Ns=Ns, dtype=dt) as sp:
         if storage_sharded:
             for k, d in enumerate(mesh.shards):
                 C[k] = pad_slab(C[k], d, w, npad)
@@ -257,6 +257,7 @@ def sharded_scores(mesh: Mesh, Z: torch.Tensor, cfg: GDCAConfig, q: int,
             J = _reslab(X, w, site_rows, mesh, Ns)
             del X
         else:
+            sp.set(**solve_steps(Ns))
             full = all_gather(C, home, mesh)
             del C
             # inverted once (on process 0 of a pod) and broadcast: every

@@ -35,8 +35,8 @@ so it pulls any inverse to a floor of its own: on the H100 it brings the
 one-device cuSOLVER inverse of the large golden family down to it and
 this blocked inverse, which starts below it, up to it; it does not lower
 the mesh's golden DI error, and it is half of the solve's products
-(``scripts/torch_solve_accuracy.py`` and ``chip_smoke.py``; PERF.md has
-the readings). ``refine_iters`` still takes it on request. A failed
+(``scripts/torch_solve_accuracy.py``; PERF.md's solve accuracy table
+has the readings). ``refine_iters`` still takes it on request. A failed
 block Cholesky raises ``ArithmeticError(NOT_POSITIVE_DEFINITE)``.
 
 In one process, slabs that share a device alias when one is

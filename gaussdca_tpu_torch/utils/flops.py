@@ -9,9 +9,9 @@ runs:
   device; kernel C over the full rectangle, 2 M^2 N q, on a mesh; plus
   3 M N q for the closed-form auto-theta;
 - frequencies: the one-hot product, 2 M Ns^2 (Ns = N (q - 1));
-- solve: Ns^3 for the Cholesky factorization and inverse, plus 4 Ns^3 for
-  the f32 Newton step of ``solve.cholesky.spd_inverse``; the mesh's
-  storage-sharded solve (Ns >= ``solve_min_dim``) takes no step;
+- solve: Ns^3 for the Cholesky factorization and the inverse from it
+  (``solve.cholesky.spd_inverse`` and the mesh's storage-sharded solve
+  alike; neither takes a Newton step);
 - DI: P pairs of kernel B (``di_pair_flops``), with the Newton-Schulz step
   count of ``score.di.ns_iters`` for the pairs a device scores; frob:
   4 s^2 a pair.
@@ -40,8 +40,7 @@ def di_pair_flops(s: int, iters: int) -> float:
 def pipeline_flops(M: int, N: int, q: int, *, score: str = "frob",
                    auto_theta: bool = True,
                    dtype: torch.dtype = torch.float32,
-                   shards: Optional[int] = None,
-                   solve_min_dim: int = 4096) -> Dict[str, float]:
+                   shards: Optional[int] = None) -> Dict[str, float]:
     """Operations per stage for one family of M sequences, N columns and
     q states; ``shards``: the mesh's shard count (None: one device)."""
     s = q - 1
@@ -51,8 +50,7 @@ def pipeline_flops(M: int, N: int, q: int, *, score: str = "frob",
         + (3.0 * M * N * q if auto_theta else 0.0),
         "frequencies": 2.0 * M * Ns * Ns,
     }
-    no_step = dtype == torch.float64 or (shards and Ns >= solve_min_dim)
-    out["solve"] = (1.0 if no_step else 5.0) * float(Ns) ** 3
+    out["solve"] = float(Ns) ** 3
     P = N * (N - 1) // 2
     if score == "DI":
         iters = ns_iters(dtype, -(-P // shards) if shards else P)

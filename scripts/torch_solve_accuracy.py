@@ -4,10 +4,14 @@
     python3 scripts/torch_solve_accuracy.py [--device cuda|cpu] [--shards 4]
 
 On the covariance of ``tests/data/large.fasta.gz`` (dedup, pc 0.2,
-auto-theta; Ns = 8000, the narrowest f32 golden gate), for the
-single-device solve (``spd_inverse``: cuSOLVER/LAPACK Cholesky + inverse)
-and the storage-sharded solve (``spd_inverse_dist`` over ``--shards``
-shards of one device), each with 0, 1 and 2 Newton steps, prints:
+auto-theta; Ns = 8000, the narrowest f32 golden gate), for the solve the
+one-device path ran before its blocked in-place inverse (``replaced``:
+cuSOLVER's / LAPACK's whole-matrix Cholesky factor and
+``torch.cholesky_inverse``), the single-device solve (``spd_inverse``,
+the blocked in-place inverse at ``BLOCK``) and the storage-sharded solve
+(``spd_inverse_dist`` over ``--shards`` shards of one device), each with
+0, 1 and 2 Newton steps, and for the blocked inverse at the widths
+``WIDTHS`` with no step, prints:
 
 - the max relative error of the f32 inverse against inv(C64), the
   inverse of the f64 covariance, and against inv(C32), the f64 inverse of
@@ -27,6 +31,8 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# block widths of the blocked inverse tried besides the module's own
+WIDTHS = (512, 2048)
 
 
 def main() -> int:
@@ -43,7 +49,7 @@ def main() -> int:
     from gaussdca_tpu_torch.score.di import di_score
     from gaussdca_tpu_torch.score.rank import compute_ranking
     from gaussdca_tpu_torch.solve import distributed
-    from gaussdca_tpu_torch.solve.cholesky import spd_inverse
+    from gaussdca_tpu_torch.solve import cholesky
     from gaussdca_tpu_torch.stats import frequencies, pseudocount, reweight
 
     dev = torch.device(args.device)
@@ -85,17 +91,28 @@ def main() -> int:
               f"{float(torch.linalg.cond(C64)):.4e}")
         mesh = Mesh([dev] * args.shards, (args.shards, 1))
         n = C32.shape[0]
+
+        def show(name, X):
+            errs = ", ".join(
+                f"vs {r} {rel_err(X, R):.3e}" for r, R in refs.items())
+            print(f"{name}: inverse {errs}; golden DI max abs "
+                  f"{golden_err(X, C32):.3e}", flush=True)
+
         for steps in (0, 1, 2):
-            single = spd_inverse(C32, refine_iters=steps)
+            replaced = cholesky.newton_refine(C32, torch.cholesky_inverse(
+                torch.linalg.cholesky(C32)), steps)
+            show(f"replaced {steps} Newton step(s)", replaced)
+            del replaced
+            show(f"single   {steps} Newton step(s)",
+                 cholesky.spd_inverse(C32, refine_iters=steps))
             slabs = distributed.spd_inverse_dist(
                 distributed.to_slabs(C32, mesh, 1024), mesh, block=1024,
                 refine_iters=steps)
-            sharded = distributed.from_slabs(slabs, n, dev)
-            for name, X in (("single", single), ("mesh", sharded)):
-                errs = ", ".join(
-                    f"vs {r} {rel_err(X, R):.3e}" for r, R in refs.items())
-                print(f"{name:6s} {steps} Newton step(s): inverse {errs}; "
-                      f"golden DI max abs {golden_err(X, C32):.3e}")
+            show(f"mesh     {steps} Newton step(s)",
+                 distributed.from_slabs(slabs, n, dev))
+        for b in WIDTHS:
+            show(f"single   0 Newton steps, block {b}",
+                 cholesky._spd_inverse_blocked(C32, b))
     return 0
 
 

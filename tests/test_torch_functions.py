@@ -9,9 +9,13 @@ against its JAX counterpart on the same seeded-numpy input (CPU).
 - ``stats.reweight.match_counts``, ``mean_fraction_identity`` and
   ``auto_theta``: the counts and theta exactly equal to JAX's, and theta
   exactly equal to the closed form's, in f64;
-- ``solve.cholesky.newton_refine`` within 1e-12 of JAX's in f64, and
-  ``spd_inverse`` bit for bit what it returned before it called
-  ``newton_refine``.
+- ``solve.cholesky.newton_refine`` within 1e-12 of JAX's in f64;
+  the blocked in-place inverse (``_spd_inverse_blocked``) at a block of
+  8, over one block, ragged blocks and several, exactly symmetric,
+  row-major and within its dtype's rounding envelope of inv(C); and
+  ``spd_inverse`` in f32 on the small golden family's covariance no less
+  accurate than the solve it replaced (LAPACK's / cuSOLVER's Cholesky
+  inverse plus one Newton step).
 """
 
 import os
@@ -28,7 +32,7 @@ from gaussdca_tpu.stats import reweight as jrw
 from gaussdca_tpu_torch.io import fasta
 from gaussdca_tpu_torch.score import rank
 from gaussdca_tpu_torch.solve import cholesky
-from gaussdca_tpu_torch.stats import reweight
+from gaussdca_tpu_torch.stats import frequencies, pseudocount, reweight
 
 
 # --- score/rank.py::top_k_ranking -------------------------------------------
@@ -153,7 +157,8 @@ def test_newton_refine_matches_jax(iters):
 
 
 def _parent_spd_inverse(C, refine_iters=None):
-    # spd_inverse as it was before it called newton_refine
+    # spd_inverse as it was before the blocked in-place inverse: LAPACK's
+    # (cuSOLVER's) Cholesky inverse, one Newton step in f32
     L, info = torch.linalg.cholesky_ex(C)
     assert int(info) == 0
     X = torch.cholesky_inverse(L)
@@ -167,13 +172,69 @@ def _parent_spd_inverse(C, refine_iters=None):
     return S if S.is_contiguous() else S.T.contiguous()
 
 
-@pytest.mark.parametrize("dtype,refine", [(torch.float32, None),
-                                          (torch.float64, None),
-                                          (torch.float32, 0),
-                                          (torch.float64, 1)])
-def test_spd_inverse_unchanged_bit_for_bit(dtype, refine):
-    C = torch.as_tensor(_spd(97, 11, cond=1e3), dtype=dtype)
-    got = cholesky.spd_inverse(C, refine)
-    want = _parent_spd_inverse(C, refine)
-    assert got.is_contiguous() and got.dtype == dtype
-    assert torch.equal(got, want)
+def _rel_err(X, ref):
+    return float((X.double() - ref).abs().max() / ref.abs().max())
+
+
+BLOCK = 8
+
+
+@pytest.mark.parametrize("cond", [1e2, 1e5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, BLOCK - 1, BLOCK, BLOCK + 1,
+                               3 * BLOCK + 5])
+def test_spd_inverse_blocked_within_the_rounding_envelope(n, dtype, cond):
+    """One block (n <= 8), a ragged second block and four blocks: inv(C)
+    exactly symmetric, row-major, and within u cond(C) of the f64
+    inverse of the same C (u the dtype's unit roundoff; the bound of a
+    backward-stable Cholesky inverse, which it meets with >= 3x room
+    over 60 seeds)."""
+    C = torch.as_tensor(_spd(n, 7 + n, cond=cond), dtype=dtype)
+    X = cholesky._spd_inverse_blocked(C, BLOCK)
+    assert X.dtype == dtype and X.shape == (n, n)
+    assert X.is_contiguous() and torch.equal(X, X.T)
+    C64 = C.double()
+    ref = torch.linalg.inv(C64)
+    u = torch.finfo(dtype).eps / 2
+    assert _rel_err(X, ref) <= u * float(torch.linalg.cond(C64))
+
+
+def _small_covariance(golden_dir, pc, dtype):
+    msa = fasta.remove_duplicate_sequences(fasta.read_fasta_alignment(
+        os.path.join(golden_dir, "small.fasta.gz"), 0.9))
+    Z = torch.as_tensor(msa.tokens)
+    W, _, _ = reweight.compute_weights_streaming(Z, "auto", msa.q,
+                                                 dtype=dtype)
+    Pi, Pij, _ = frequencies.weighted_frequencies(Z, W, msa.q, dtype=dtype)
+    return pseudocount.compute_C(*pseudocount.add_pseudocount(
+        Pi, Pij, pc, msa.q))
+
+
+@pytest.mark.parametrize("pc", [0.2, 0.8])
+def test_spd_inverse_f32_no_worse_than_the_solve_it_replaced(golden_dir,
+                                                             pc):
+    """f32, the small golden family's covariance (Ns = 1060, two blocks;
+    DI's pseudocount and the default): ``spd_inverse`` is no further from
+    inv(C64), the inverse of the f64 covariance, nor from inv(C32), the
+    f64 inverse of the f32 covariance, than the solve it replaced, the
+    Cholesky inverse with one Newton step."""
+    C32 = _small_covariance(golden_dir, pc, torch.float32)
+    assert C32.shape[0] > cholesky.BLOCK
+    X = cholesky.spd_inverse(C32)
+    old = _parent_spd_inverse(C32, 1)
+    for ref in (torch.linalg.inv(_small_covariance(golden_dir, pc,
+                                                   torch.float64)),
+                torch.linalg.inv(C32.double())):
+        assert _rel_err(X, ref) <= _rel_err(old, ref)
+
+
+@pytest.mark.parametrize("n,block,pivot", [(3 * BLOCK + 5, BLOCK, 20),
+                                           (3 * BLOCK + 5, BLOCK, 28),
+                                           (1100, cholesky.BLOCK, 1050)])
+def test_spd_inverse_raises_on_a_pivot_in_a_later_block(n, block, pivot):
+    """A C whose failing pivot lies in a later block (the last row of the
+    ragged last block too) raises the package's error."""
+    C = torch.as_tensor(_spd(n, 3, cond=1e2))
+    C[pivot, pivot] = -1.0
+    with pytest.raises(ArithmeticError, match="positive definite"):
+        cholesky._spd_inverse_blocked(C, block)

@@ -45,8 +45,8 @@ _AOT = ("eager PyTorch with prebuilt kernels compiles nothing per shape, "
         "so there is nothing to compile ahead or cache")
 _LANES = ("a TPU lane layout of DI; kernel B reads each pair's block by "
           "index from a row slab and needs no tiles")
-_TRSM = ("a TPU TRSM workaround; cholesky_inverse (LAPACK, cuSOLVER) "
-         "forms the inverse")
+_TRSM = ("a TPU TRSM workaround; solve.cholesky inverts the factor by "
+         "block column triangular solves and forms W^T W by block rows")
 _SHARDING = ("a NamedSharding helper; the port's Mesh places each shard "
              "on its device explicitly")
 

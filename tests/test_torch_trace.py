@@ -27,6 +27,7 @@ from gaussdca_tpu_torch import api, cli
 from gaussdca_tpu_torch.core import runtime
 from gaussdca_tpu_torch.parallel import mesh as meshlib
 from gaussdca_tpu_torch.parallel import sharded
+from gaussdca_tpu_torch.solve import cholesky
 from gaussdca_tpu_torch.utils import log
 
 CPU = ["--device", "cpu", "--dtype", "float64"]
@@ -99,8 +100,10 @@ def test_record_spans_under_an_outer_profiler(small, tmp_path):
         assert spans["reweight"][4] == {"M": rec["M"], "N": rec["N"],
                                         "q": rec["q"]}
         assert spans["frequencies"][4]["dtype"] == "float64"
-        assert spans["solve"][4] == {"Ns": rec["N"] * (rec["q"] - 1),
-                                     "dtype": "float64"}
+        Ns = rec["N"] * (rec["q"] - 1)
+        assert spans["solve"][4] == {"Ns": Ns, "dtype": "float64",
+                                     "blocks": -(-Ns // cholesky.BLOCK),
+                                     "refine": 0}
         assert spans["score"][4]["score"] == "DI"
         assert spans["rank"][4]["pairs"] == rec["pairs"]
         assert spans["rank"][4]["sorted_on"] == "cpu"
@@ -205,6 +208,24 @@ def test_mesh_run_has_the_stages_and_collectives(small, tmp_path):
     assert rec["counters"]["collective_s"] == pytest.approx(sum(
         s[3] - s[2] for s in coll))
     assert set(rec["counters"]) == {"collective_s", "collective_bytes"}
+
+
+@pytest.mark.parametrize("mesh", [None, "2,2"])
+def test_solve_span_counts_blocks_and_newton_steps(small, tmp_path, mesh):
+    """The ``solve`` span of the one-device solve (alone, or the mesh's
+    replicated solve below ``solve_min_dim``) carries its block steps and
+    its Newton steps: the small family's Ns = 1060 takes two blocks of
+    1024, and no step."""
+    argv = [small, "-o", str(tmp_path / "o"), *CPU]
+    if mesh:
+        argv += ["--mesh", mesh]
+    rc, recs = run_cli(argv, log.tracing())
+    assert rc == 0
+    rec, = [r for r in recs if "family" in r]
+    solve, = [s for s in rec["spans"] if s[0] == "solve"]
+    assert solve[4]["Ns"] == 1060 > cholesky.BLOCK
+    assert solve[4]["blocks"] == 2
+    assert solve[4]["refine"] == 0
 
 
 def test_untraced_opens_no_range_and_keeps_the_record(small, tmp_path,
